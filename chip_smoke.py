@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (dg_sct_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py        # from the root of a checkout
+
+Phases, each fatal on failure:
+  1. the card's name and power limit (nvidia-smi); TF32 off for matmul and cuDNN;
+  2. build the three CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  3. hold each kernel against its plain PyTorch version at every shape of the
+     main path, in float32 and bfloat16, and time kernel, plain version and,
+     for K1, `scaled_dot_product_attention` (a yardstick the port never calls);
+  4. drive the full-width AVE eval forward (AVEModelConfig(), random weights
+     from seed 0, nonzero adapter gates) through AVEInferenceEngine: B=2 clips
+     in bf16, 3 predict requests; check outputs, launch counts K1=2, K2=34,
+     K3=48 per forward, and one float32 kernel forward against the float32
+     plain forward.
+It then prints the kernels line, the card line and, last, the ok line.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense; f32 without TF32
+PEAK_BYTES = 3.35e12
+TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 2e-2)}  # (atol, rtol)
+MODEL_TOL = (2e-3, 2e-3)  # f32 kernel forward vs f32 plain forward (atol, rtol)
+BATCH = 2
+REQUESTS = 3
+PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48}
+SOURCES = {
+    "window_attention": ("dg_sct_tpu_torch/csrc/window_attention.cu",
+                         "dg_sct_tpu/ops/pallas/window_attention.py:73"),
+    "block_attention": ("dg_sct_tpu_torch/csrc/block_attention.cu",
+                        "dg_sct_tpu/ops/pallas/block_attention.py:113"),
+    "adapter_bottleneck": ("dg_sct_tpu_torch/csrc/adapter_bottleneck.cu",
+                           "dg_sct_tpu/ops/pallas/adapter_bottleneck.py:66"),
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, budget_ms=60.0) -> float:
+    """Mean time of one call on the card, by CUDA events over a batch of calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = int(min(50, max(3, budget_ms / max(start.elapsed_time(end), 1e-3))))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops, nbytes, dtype):
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
+
+
+def compare(got, ref, dtype):
+    atol, rtol = TOL[dtype]
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError("kernel output is not finite")
+    err = (g - r).abs()
+    worst = (err / (atol + rtol * r.abs())).max().item()
+    return err.max().item(), worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the kernels at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def kernel_cases(cfg):
+    """(kernel, case, launches per forward): every main-path shape, with the
+    number of calls one forward makes at it; K1 also at the shapes it takes
+    in the blocks where K2 runs (0 calls per forward)."""
+    from dg_sct_tpu_torch.configs import ave_adapter_dims
+    from dg_sct_tpu_torch.models import htsat, swinv2
+    from dg_sct_tpu_torch.ops.windows import fused_block_eligible
+
+    frames = BATCH * cfg.num_frames
+    k1, k2, k3 = {}, {}, {}
+    for kind, plan in (("v2", swinv2.block_plan(cfg.swin)), ("v1", htsat.block_plan(cfg.htsat))):
+        for stage in plan:
+            for m in stage:
+                H, W = m["res"]
+                N, ws = m["ws"] ** 2, m["ws"]
+                nW = (H // ws) * (W // ws)
+                on_k2 = fused_block_eligible(m["dim"], m["heads"], False, True)
+                for masked in (False, True):
+                    key = (frames * nW, N, m["heads"], m["dim"] // m["heads"], nW, masked,
+                           H, W, ws)
+                    k1.setdefault(key, 0)
+                    if not on_k2 and masked == (m["shift"] > 0):
+                        k1[key] += 1
+                if on_k2:
+                    key = (kind, frames, H, W, m["dim"], m["heads"], ws, m["shift"])
+                    k2[key] = k2.get(key, 0) + 1
+    for (v_dim, v_tok, a_dim, a_tok) in ave_adapter_dims(cfg.swin, cfg.htsat):
+        for C, N in ((v_dim, v_tok), (a_dim, a_tok)):
+            k3[(frames * N, C)] = k3.get((frames * N, C), 0) + 2
+    return ([("window_attention", k, n) for k, n in k1.items()]
+            + [("block_attention", k, n) for k, n in k2.items()]
+            + [("adapter_bottleneck", k, n) for k, n in k3.items()])
+
+
+def run_case(name, key, dtype, gen):
+    """Inputs from `gen` on the card -> (kernel fn, plain fn, library fn or
+    None, flops, bytes)."""
+    from dg_sct_tpu_torch.ops.kernels import adapter_bottleneck as K3
+    from dg_sct_tpu_torch.ops.kernels import block_attention as K2
+    from dg_sct_tpu_torch.ops.kernels import window_attention as K1
+    from dg_sct_tpu_torch.ops.windows import shift_attn_mask
+
+    dev = "cuda"
+    rnd = lambda *s, scale=1.0: (torch.randn(s, device=dev, generator=gen) * scale).to(dtype)
+    it = torch.tensor([], dtype=dtype).element_size()
+    if name == "window_attention":
+        Bw, N, H, D, nW, masked, Hs, Ws, ws = key
+        q, k, v = rnd(Bw, N, H, D, scale=0.3), rnd(Bw, N, H, D, scale=0.3), rnd(Bw, N, H, D)
+        bias = rnd(H, N, N, scale=0.5)
+        mask = None
+        if masked:
+            mask = torch.as_tensor(shift_attn_mask(Hs, Ws, ws, ws // 2), device=dev).to(dtype)
+        full = bias[None].expand(Bw, H, N, N)
+        if mask is not None:
+            full = (full.reshape(Bw // nW, nW, H, N, N) + mask[None, :, None]).reshape(Bw, H, N, N)
+        full = full.contiguous()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=full,
+                                                                       scale=1.0)
+        flops = 4 * Bw * H * N * N * D
+        nbytes = it * (4 * Bw * N * H * D + H * N * N + (nW * N * N if masked else 0))
+        return (lambda: K1.window_attention(q, k, v, bias, mask, nW=nW),
+                lambda: K1.window_attention_plain(q, k, v, bias, mask, nW=nW), lib, flops, nbytes)
+    if name == "block_attention":
+        kind, B, Hs, Ws, C, heads, ws, shift = key
+        N = ws * ws
+        x = rnd(B, Hs, Ws, C)
+        wqkv, wproj = rnd(C, 3 * C, scale=C ** -0.5), rnd(C, C, scale=C ** -0.5)
+        bqkv, bproj = rnd(3 * C, scale=0.1), rnd(C, scale=0.1)
+        if kind == "v2":
+            bias = (16.0 * torch.sigmoid(torch.randn(heads, N, N, device=dev, generator=gen))).to(dtype)
+            logit_scale = (math.log(10.0) + rnd(heads, scale=0.3).float()).to(dtype)
+        else:
+            bias, logit_scale = rnd(heads, N, N, scale=0.02), None
+        ln_s, ln_b = (1.0 + rnd(C, scale=0.1).float()).to(dtype), rnd(C, scale=0.1)
+        mask = None
+        if shift:
+            mask = torch.as_tensor(shift_attn_mask(Hs, Ws, ws, shift), device=dev).to(dtype)
+        args = (x, wqkv, bqkv, wproj, bproj, bias, ln_s, ln_b, mask, logit_scale)
+        kw = dict(kind=kind, heads=heads, ws=ws)
+        T = B * Hs * Ws
+        Bw = T // N
+        flops = 2 * T * C * 4 * C + 4 * Bw * heads * N * N * (C // heads)
+        nbytes = it * (2 * T * C + 4 * C * C + 6 * C + heads * N * N
+                       + (mask.numel() if shift else 0) + heads)
+        return (lambda: K2.fused_attn_half_block(*args, **kw),
+                lambda: K2.fused_attn_half_block_plain(*args, **kw), None, flops, nbytes)
+    rows, C = key
+    g, go = 2, C // 16
+    x = rnd(rows, C)
+    wd, wu = rnd(g, C // g, go, scale=(C // g) ** -0.5), rnd(g, go, C // g, scale=go ** -0.5)
+    bd, bu = rnd(g * go, scale=0.1), rnd(C, scale=0.1)
+    ln = [(1.0 + rnd(C, scale=0.1).float()).to(dtype), rnd(C, scale=0.1)] * 2
+    args = (x, wd, bd, wu, bu, *ln)
+    flops = 4 * rows * C * go
+    nbytes = it * (2 * rows * C + 2 * C * go + g * go + 5 * C)
+    return (lambda: K3.bottleneck_rows(*args, has_ln1=True),
+            lambda: K3.bottleneck_rows_plain(*args, has_ln1=True), None, flops, nbytes)
+
+
+def check_kernels(cfg):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = []
+    for name, key, per_fwd in kernel_cases(cfg):
+        for dtype in (torch.float32, torch.bfloat16):
+            kern, plain, lib, flops, nbytes = run_case(name, key, dtype, gen)
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err, worst = compare(got, ref, dtype)
+            if worst > 1.0:
+                raise AssertionError(f"{name} {key} {dtype}: max error {err:.3e} exceeds "
+                                     f"atol/rtol {TOL[dtype]}")
+            b_ms, ops_ms, bytes_ms = bound(flops, nbytes, dtype)
+            row = dict(name=name, case=list(key), dtype=str(dtype).replace("torch.", ""),
+                       per_forward=per_fwd, max_abs_err=err, kernel_ms=time_ms(kern),
+                       plain_ms=time_ms(plain), library_ms=time_ms(lib) if lib else None,
+                       bound_ms=b_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
+            rows.append(row)
+            print("kernel", json.dumps(row), flush=True)
+    return rows
+
+
+def kernels_line(rows, counts):
+    """One entry per kernel: the bfloat16 times summed over one forward's
+    calls (the main path serves bf16), errors over every case and dtype."""
+    out = []
+    for name, (source, replaces) in SOURCES.items():
+        mine = [r for r in rows if r["name"] == name]
+        main = [r for r in mine if r["dtype"] == "bfloat16" and r["per_forward"]]
+        tot = lambda k: sum(r["per_forward"] * r[k] for r in main)
+        lib = [r["library_ms"] for r in main]
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=tot("kernel_ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
+            bound_by="operations" if tot("ops_ms") >= tot("bytes_ms") else "bytes",
+            library_ms=tot("library_ms") if lib and None not in lib else None))
+    return {"kernels": out}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the full-width AVE eval forward through the engine
+# ---------------------------------------------------------------------------
+
+KERNEL_GROUPS = (("K1", ("window_attention_kernel",)),
+                 ("K2", ("qkv_attention_kernel", "proj_kernel", "residual_kernel")),
+                 ("K3", ("bottleneck_kernel",)),
+                 ("library GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+                 ("memcpy", ("memcpy", "memset")))
+
+
+def profile_forward(eng, wave, frames):
+    """One engine forward under torch.profiler: device time by kernel group,
+    the busiest kernels, and the share of the forward's span the card idles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.forward_batch(wave, frames)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print("profile: the profiler recorded no device time", flush=True)
+        return
+    by_group, by_name = {}, {}
+    for e in dev:
+        us = e.time_range.elapsed_us()
+        low = e.name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
+        by_group[group] = by_group.get(group, 0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, t in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, t
+        else:
+            hi = max(hi, t)
+    busy += hi - lo
+    span = max(t for _, t in spans) - spans[0][0]
+    groups = ", ".join(f"{g} {us / 1e3:.3f} ms" for g, us in
+                       sorted(by_group.items(), key=lambda kv: -kv[1]))
+    print(f"profile: one forward of {BATCH} clips: device busy {busy / 1e3:.3f} ms of a "
+          f"{span / 1e3:.3f} ms span ({100.0 * (1.0 - busy / span):.1f}% idle), "
+          f"{len(dev)} device events; by group: {groups}", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"profile:   {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
+
+
+def run_model(cfg):
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.models.interleave import ADKEYS, fold_adapters_eval
+    from dg_sct_tpu_torch.ops.basic import normalize_frames_u8
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.serve import AVEInferenceEngine
+
+    params, state = ave.init_ave_model(cfg, seed=0, device="cuda")
+    # adapters are zero-gated at init; seeded nonzero gates make them count
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for k in ADKEYS:
+        for ap in params["adapters"][k]:
+            for g in ("gate", "gate_av"):
+                ap[g] = torch.empty_like(ap[g]).uniform_(0.2, 0.6, generator=gen)
+
+    rs = np.random.RandomState(0)
+    T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.swin.img_size
+    wave_f = (0.3 * rs.randn(BATCH, T, L)).clip(-1, 1).astype(np.float32)
+    requests = [(wave_f, rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8)),
+                ((wave_f * 32767).astype(np.int16),
+                 rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8)),
+                (wave_f[::-1].copy(), rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8))]
+
+    eng = AVEInferenceEngine(cfg, params, state, batch_size=BATCH, device="cuda")
+    eng.predict(*requests[0])                       # warm-up: allocator, cuBLAS handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [eng.predict(w, f) for w, f in requests[:REQUESTS]]
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for o in outs:
+        assert o["event_scores"].shape == (BATCH, cfg.num_classes), o["event_scores"].shape
+        assert o["is_event_scores"].shape == (BATCH, T), o["is_event_scores"].shape
+        assert o["segment_preds"].shape == (BATCH, T)
+        for v in o.values():
+            assert np.isfinite(v).all(), "non-finite engine output"
+    want = {k: v * REQUESTS for k, v in PER_FORWARD.items()}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want} "
+                             f"({PER_FORWARD} per forward x {REQUESTS})")
+    print(f"model: {REQUESTS} requests of {BATCH} clips in {dt:.3f} s = "
+          f"{REQUESTS * BATCH / dt:.3f} clips/s (bf16, kernels on), peak memory "
+          f"{peak / 2**30:.3f} GiB, launches {counts}, card {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    profile_forward(eng, *requests[0])
+
+    # float32: kernels on vs the plain path, same folded weights and inputs
+    fp, fs = fold_adapters_eval(params, state, cfg)
+    wave = torch.as_tensor(requests[0][0], device="cuda")
+    frames = normalize_frames_u8(torch.as_tensor(requests[0][1], device="cuda"), torch.float32)
+    with torch.inference_mode():
+        got = ave.forward(fp, fs, wave, frames, cfg, kernels=True, device="cuda")
+        ref = ave.forward(fp, fs, wave, frames, cfg, kernels=False, device="cuda")
+    atol, rtol = MODEL_TOL
+    for k in ref:
+        g, r = got[k].float(), ref[k].float()
+        err = (g - r).abs().max().item()
+        ok = bool(torch.isfinite(g).all()) and bool(((g - r).abs() <= atol + rtol * r.abs()).all())
+        print(f"model f32 {k}: kernels vs plain max abs err {err:.3e} "
+              f"(atol {atol}, rtol {rtol}), |plain| max {r.abs().max().item():.3e}", flush=True)
+        if not ok:
+            raise AssertionError(f"f32 forward {k}: kernels and plain path disagree ({err:.3e})")
+    bf = outs[0]["event_scores"]
+    print(f"model bf16 engine vs f32 plain event_scores max abs diff "
+          f"{np.abs(bf - ref['event_scores'].cpu().numpy()).max():.3e}", flush=True)
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from dg_sct_tpu_torch.configs import AVEModelConfig
+    from dg_sct_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
+          f"({build.build_dir()})", flush=True)
+    for name in libs:
+        log = (build.build_dir() / f"{name}.log").read_text().splitlines()
+        for line in log:
+            if "Used" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    cfg = AVEModelConfig()
+    rows = check_kernels(cfg)
+    counts = run_model(cfg)
+    print(json.dumps(kernels_line(rows, counts)))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,56 @@
+// Helpers shared by the kernels of dg_sct_tpu_torch (sm_90a, plain C ABI).
+//
+// Every kernel takes float32 or bfloat16 tensors (dtype code 0 or 1), does
+// its arithmetic in float32, and rounds to the tensor type only at the points
+// where the TPU kernel it replaces rounds (`round_to<T>`).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace dgsct {
+
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+}
+
+// float32 value of x after a round trip through T
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory.
+template <typename K> inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace dgsct
+
+// Each source builds into its own library, which includes this header once.
+extern "C" const char* dgsct_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,104 @@
+"""HTS-AT audio Swin tower (frozen backbone), eval.
+
+The frontend (STFT, log-mel, bn0, mel image, patch embed), pre-norm V1 Swin
+blocks with a relative-position-bias table, and V1 patch merging (norm, then
+reduction), driven block by block by the interleave.
+"""
+from __future__ import annotations
+
+from ..configs import HTSATConfig
+from ..ops import dsp
+from ..ops.basic import (Init, batch_norm, batch_norm_init, layer_norm, layer_norm_init,
+                         linear, linear_init, merge_2x2, mlp, mlp_init, patch_embed,
+                         patch_embed_init)
+from ..ops.windows import (attention_v1_init, fused_block_eligible, fused_half_block,
+                           shifted_window_attention, window_attention_v1)
+
+
+def init_block(init: Init, dim, heads, ws, mlp_ratio):
+    return {"norm1": layer_norm_init(init, dim),
+            "attn": attention_v1_init(init, dim, ws, heads),
+            "norm2": layer_norm_init(init, dim),
+            "mlp": mlp_init(init, dim, int(dim * mlp_ratio))}
+
+
+def tscam_freq_bins(cfg: HTSATConfig) -> int:
+    grid = cfg.spec_size // (2 ** (cfg.num_layers - 1)) // cfg.patch_stride[0]
+    return max(grid // cfg.frontend.freq_ratio, 1)
+
+
+def init_htsat(init: Init, cfg: HTSATConfig):
+    """Returns (params, state); state carries the bn0 running stats. The tscam
+    head's weights are kept so the tree matches the JAX package's; the AVE
+    forward does not run them."""
+    params = {"patch_embed": patch_embed_init(init, cfg.patch_size, cfg.in_chans,
+                                              cfg.embed_dim, norm=cfg.patch_norm)}
+    params["bn0"], bn0_state = batch_norm_init(init, cfg.frontend.mel_bins)
+    layers = []
+    for s in range(cfg.num_layers):
+        dim = cfg.stage_dim(s)
+        ws = min(cfg.window_size, min(cfg.stage_resolution(s)))
+        stage = {"blocks": [init_block(init, dim, cfg.num_heads[s], ws, cfg.mlp_ratio)
+                            for _ in range(cfg.depths[s])]}
+        if s < cfg.num_layers - 1:
+            stage["downsample"] = {"norm": layer_norm_init(init, 4 * dim),
+                                   "reduction": {"kernel": init.normal((4 * dim, 2 * dim), 0.02)}}
+        layers.append(stage)
+    params["layers"] = layers
+    params["norm"] = layer_norm_init(init, cfg.num_features)
+    params["tscam_conv"] = {
+        "kernel": init.normal((tscam_freq_bins(cfg), 3, cfg.num_features, cfg.num_classes), 0.02),
+        "bias": init.zeros((cfg.num_classes,))}
+    params["head"] = linear_init(init, cfg.num_classes, cfg.num_classes)
+    return params, {"bn0": bn0_state}
+
+
+def mel_features(params, state, wave, cfg: HTSATConfig):
+    """wave (N, L) -> (N, T, mel) after bn0 (eval)."""
+    fcfg = cfg.frontend
+    x = dsp.logmel(dsp.power_spectrogram(wave, fcfg, fcfg.stft_compute), fcfg)
+    return batch_norm(params["bn0"], state["bn0"], x, axis=-1)
+
+
+def tokens_from_mel(params, x, cfg: HTSATConfig):
+    """(N, T, mel) -> patch tokens; the float32 mel image goes to the tower's
+    dtype at the patch embed."""
+    img = dsp.reshape_wav2img(x, cfg.frontend).to(params["patch_embed"]["kernel"].dtype)
+    return patch_embed(params["patch_embed"], img, cfg.patch_size)
+
+
+def frontend(params, state, wave, cfg: HTSATConfig):
+    """wave (N, L) -> patch tokens (N, (spec/4)^2, E), eval."""
+    return tokens_from_mel(params, mel_features(params, state, wave, cfg), cfg)
+
+
+def block(params, x, *, dim, heads, res, ws, shift, kernels=True, gelu="exact"):
+    """Pre-norm V1 Swin block. x: (N, L, C)."""
+    if fused_block_eligible(dim, heads, False, kernels):
+        x = fused_half_block(params, x, kind="v1", heads=heads, res=res, ws=ws, shift=shift)
+        return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu)
+    H, W = res
+    attn_out = shifted_window_attention(
+        lambda w, m, nw: window_attention_v1(params["attn"], w, num_heads=heads, ws=ws,
+                                             mask=m, nW=nw, kernels=kernels),
+        layer_norm(params["norm1"], x), H=H, W=W, ws=ws, shift=shift)
+    x = x + attn_out
+    return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu)
+
+
+def patch_merging(params, x, res):
+    """V1 patch merging: norm(4C) then reduction."""
+    return linear(params["reduction"], layer_norm(params["norm"], merge_2x2(x, res)))
+
+
+def block_plan(cfg: HTSATConfig):
+    """Static per-stage block metadata: dim, heads, res, ws, shift."""
+    plan = []
+    for s in range(cfg.num_layers):
+        res = cfg.stage_resolution(s)
+        ws = min(cfg.window_size, min(res))
+        plan.append([dict(dim=cfg.stage_dim(s), heads=cfg.num_heads[s], res=res, ws=ws,
+                          shift=0 if min(res) <= cfg.window_size or d % 2 == 0 else ws // 2)
+                     for d in range(cfg.depths[s])])
+    return plan
+

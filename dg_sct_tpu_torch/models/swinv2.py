@@ -1,0 +1,87 @@
+"""Swin-V2-Large visual tower (frozen backbone), eval.
+
+timm 0.6.12 `swinv2_large_window12_192_22k` semantics: post-norm residuals,
+scaled-cosine window attention with a clamped logit scale, the log-CPB bias,
+and V2 patch merging (reduction, then norm).
+"""
+from __future__ import annotations
+
+from ..configs import SwinV2Config
+from ..ops.basic import (Init, layer_norm, layer_norm_init, linear, merge_2x2, mlp,
+                         mlp_init, patch_embed, patch_embed_init)
+from ..ops.windows import (attention_v2_init, fused_block_eligible, fused_half_block,
+                           shifted_window_attention, window_attention_v2)
+
+
+def init_block(init: Init, dim, heads, mlp_ratio):
+    return {"attn": attention_v2_init(init, dim, heads),
+            "norm1": layer_norm_init(init, dim),
+            "mlp": mlp_init(init, dim, int(dim * mlp_ratio)),
+            "norm2": layer_norm_init(init, dim)}
+
+
+def init_swinv2(init: Init, cfg: SwinV2Config):
+    params = {"patch_embed": patch_embed_init(init, cfg.patch_size, cfg.in_chans,
+                                              cfg.embed_dim, norm=True)}
+    layers = []
+    for s in range(cfg.num_layers):
+        dim = cfg.stage_dim(s)
+        stage = {"blocks": [init_block(init, dim, cfg.num_heads[s], cfg.mlp_ratio)
+                            for _ in range(cfg.depths[s])]}
+        if s < cfg.num_layers - 1:
+            stage["downsample"] = {"reduction": {"kernel": init.normal((4 * dim, 2 * dim), 0.02)},
+                                   "norm": layer_norm_init(init, 2 * dim)}
+        layers.append(stage)
+    params["layers"] = layers
+    params["norm"] = layer_norm_init(init, cfg.num_features)
+    return params
+
+
+def block_plan(cfg: SwinV2Config):
+    """Static per-block metadata (timm's constructor): dim, heads, res, ws, shift."""
+    plan = []
+    for s in range(cfg.num_layers):
+        res = cfg.stage_resolution(s)
+        ws = min(cfg.window_size, min(res))
+        plan.append([dict(dim=cfg.stage_dim(s), heads=cfg.num_heads[s], res=res, ws=ws,
+                          shift=0 if min(res) <= cfg.window_size or d % 2 == 0 else ws // 2,
+                          pretrained_ws=cfg.pretrained_window_sizes[s])
+                     for d in range(cfg.depths[s])])
+    return plan
+
+
+def attn_part(params, x, meta, *, kernels=True):
+    """The spatial-attention half of a block before norm1 and the residual
+    (timm's `blk._attn(x)`, which the interleave drives). x: (N, L, C)."""
+    H, W = meta["res"]
+    return shifted_window_attention(
+        lambda w, m, nw: window_attention_v2(params["attn"], w, num_heads=meta["heads"],
+                                             ws=meta["ws"], mask=m, nW=nw,
+                                             pretrained_ws=meta["pretrained_ws"],
+                                             kernels=kernels),
+        x, H=H, W=W, ws=meta["ws"], shift=meta["shift"])
+
+
+def attn_half(params, x, meta, *, kernels=True):
+    """x + norm1(attn(x)): K2 where it applies, else the plain composition."""
+    if fused_block_eligible(meta["dim"], meta["heads"], False, kernels):
+        return fused_half_block(params, x, kind="v2", heads=meta["heads"], res=meta["res"],
+                                ws=meta["ws"], shift=meta["shift"],
+                                pretrained_ws=meta["pretrained_ws"])
+    return x + layer_norm(params["norm1"], attn_part(params, x, meta, kernels=kernels))
+
+
+def block(params, x, meta, *, kernels=True, gelu="exact"):
+    """Post-norm V2 block: x += norm1(attn(x)); x += norm2(mlp(x))."""
+    x = attn_half(params, x, meta, kernels=kernels)
+    return x + layer_norm(params["norm2"], mlp(params["mlp"], x, gelu))
+
+
+def patch_merging(params, x, res):
+    """V2 patch merging: cat 4 -> Linear(4C, 2C, no bias) -> LayerNorm(2C)."""
+    return layer_norm(params["norm"], linear(params["reduction"], merge_2x2(x, res)))
+
+
+def patch_embed_tokens(params, images, cfg: SwinV2Config):
+    """(N, H, W, 3) -> (N, (H/4)*(W/4), 192) patch tokens."""
+    return patch_embed(params["patch_embed"], images, cfg.patch_size)

@@ -1,0 +1,209 @@
+"""Basic parameterized ops as plain functions over dicts of tensors.
+
+Same conventions as `dg_sct_tpu/ops/basic.py`: linear kernels are stored
+(in, out), grouped kernels (g, in/g, out/g), the patch-embed kernel
+(P, P, C, E); every op is `f(params, x, ...) -> y` over leading axes.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import constant
+
+
+# ---------------------------------------------------------------------------
+# initializers (torch-default distributions, drawn from one torch.Generator)
+# ---------------------------------------------------------------------------
+
+class Init:
+    """Random float32 initialisers drawing from `generator` on `device`. On
+    the "meta" device (shapes only) pass `generator=None`."""
+
+    dtype = torch.float32
+
+    def __init__(self, generator, device):
+        self.generator = generator
+        self.device = torch.device(device)
+
+    def _empty(self, shape):
+        return torch.empty(shape, device=self.device, dtype=self.dtype)
+
+    def uniform(self, shape, lo=0.0, hi=1.0):
+        return self._empty(shape).uniform_(lo, hi, generator=self.generator)
+
+    def normal(self, shape, std=1.0):
+        return self._empty(shape).normal_(0.0, std, generator=self.generator)
+
+    def trunc_normal(self, shape, std=0.02):
+        """timm-style truncated normal in [-2, 2] stds."""
+        return torch.nn.init.trunc_normal_(self._empty(shape), std=std, a=-2.0 * std,
+                                           b=2.0 * std, generator=self.generator)
+
+    def kaiming_uniform(self, shape, fan_in):
+        """nn.Linear / nn.Conv default weight init (kaiming_uniform, a=sqrt(5))."""
+        bound = math.sqrt(1.0 / fan_in)
+        return self.uniform(shape, -bound, bound)
+
+    def zeros(self, shape):
+        return torch.zeros(shape, device=self.device, dtype=self.dtype)
+
+    def ones(self, shape):
+        return torch.ones(shape, device=self.device, dtype=self.dtype)
+
+    def full(self, shape, value):
+        return torch.full(shape, value, device=self.device, dtype=self.dtype)
+
+
+def linear_init(init: Init, in_dim, out_dim, bias=True):
+    p = {"kernel": init.kaiming_uniform((in_dim, out_dim), in_dim)}
+    if bias:
+        bound = 1.0 / math.sqrt(in_dim)
+        p["bias"] = init.uniform((out_dim,), -bound, bound)
+    return p
+
+
+def layer_norm_init(init: Init, dim):
+    return {"scale": init.ones((dim,)), "bias": init.zeros((dim,))}
+
+
+def mlp_init(init: Init, dim, hidden, out=None):
+    return {"fc1": linear_init(init, dim, hidden),
+            "fc2": linear_init(init, hidden, out or dim)}
+
+
+def batch_norm_init(init: Init, dim):
+    params = {"scale": init.ones((dim,)), "bias": init.zeros((dim,))}
+    state = {"mean": init.zeros((dim,)), "var": init.ones((dim,)),
+             "count": torch.zeros((), device=init.device, dtype=torch.int32)}
+    return params, state
+
+
+def grouped_linear_init(init: Init, in_dim, out_dim, groups, bias=False):
+    gi, go = in_dim // groups, out_dim // groups
+    p = {"kernel": init.kaiming_uniform((groups, gi, go), gi)}
+    if bias:
+        bound = 1.0 / math.sqrt(gi)
+        p["bias"] = init.uniform((out_dim,), -bound, bound)
+    return p
+
+
+def patch_embed_init(init: Init, patch, in_chans, embed_dim, norm=True):
+    fan_in = in_chans * patch * patch
+    bound = 1.0 / math.sqrt(fan_in)
+    p = {"kernel": init.kaiming_uniform((patch, patch, in_chans, embed_dim), fan_in),
+         "bias": init.uniform((embed_dim,), -bound, bound)}
+    if norm:
+        p["norm"] = layer_norm_init(init, embed_dim)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# forward ops
+# ---------------------------------------------------------------------------
+
+def linear(params, x):
+    y = x @ params["kernel"]
+    if "bias" in params:
+        y = y + params["bias"]
+    return y
+
+
+def layer_norm(params, x, eps=1e-5):
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+
+
+GELU_MODES = ("exact", "tanh")
+
+
+def gelu(x, mode: str = "exact"):
+    """"exact" is torch's erf GELU (the reference's nn.GELU()); "tanh" the
+    approximation serving uses (<= 3e-3 apart in bf16)."""
+    if mode not in GELU_MODES:
+        raise ValueError(f"gelu mode {mode!r} not in {GELU_MODES}")
+    return F.gelu(x, approximate="tanh" if mode == "tanh" else "none")
+
+
+def mlp(params, x, gelu_mode: str = "exact"):
+    return linear(params["fc2"], gelu(linear(params["fc1"], x), gelu_mode))
+
+
+def batch_norm(params, state, x, *, axis=-1, eps=1e-5):
+    """Eval BatchNorm over every axis but `axis`, from the running stats."""
+    ax = axis % x.ndim
+    shape = [1] * x.ndim
+    shape[ax] = x.shape[ax]
+    mu, var = state["mean"].reshape(shape), state["var"].reshape(shape)
+    xn = (x - mu) * torch.rsqrt(var + eps)
+    return xn * params["scale"].reshape(shape) + params["bias"].reshape(shape)
+
+
+def grouped_linear(params, x):
+    """x: (..., in_dim) -> (..., out_dim), block-diagonal over channel groups
+    (`nn.Conv2d(in, out, 1, groups=g)`)."""
+    g, gi, go = params["kernel"].shape
+    lead = x.shape[:-1]
+    y = torch.einsum("...gi,gio->...go", x.reshape(lead + (g, gi)), params["kernel"])
+    y = y.reshape(lead + (g * go,))
+    if "bias" in params:
+        y = y + params["bias"]
+    return y
+
+
+def patch_embed(params, x, patch):
+    """(B, H, W, C) -> (B, (H/p)*(W/p), E): the stride-p patch conv as
+    space-to-depth and one GEMM, then the optional LayerNorm."""
+    B, H, W, C = x.shape
+    gh, gw = H // patch, W // patch
+    x = x.reshape(B, gh, patch, gw, patch, C).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(B, gh * gw, patch * patch * C)
+    y = x @ params["kernel"].reshape(patch * patch * C, -1) + params["bias"]
+    if "norm" in params:
+        y = layer_norm(params["norm"], y)
+    return y
+
+
+def merge_2x2(x, res):
+    """(B, H*W, C) -> (B, H/2*W/2, 4C): each 2x2 patch's tokens concatenated
+    in the order (0,0), (1,0), (0,1), (1,1) over (h, w)."""
+    H, W = res
+    B, L, C = x.shape
+    x = x.reshape(B, H // 2, 2, W // 2, 2, C)
+    x = torch.cat([x[:, :, 0, :, 0], x[:, :, 1, :, 0], x[:, :, 0, :, 1], x[:, :, 1, :, 1]],
+                  dim=-1)
+    return x.reshape(B, (H // 2) * (W // 2), 4 * C)
+
+
+# ---------------------------------------------------------------------------
+# on-device ingest of the serving wire formats
+# ---------------------------------------------------------------------------
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def normalize_frames_u8(frames, dtype=torch.bfloat16, mean=IMAGENET_MEAN, std=IMAGENET_STD):
+    """uint8 (..., H, W, 3) frames -> ImageNet-normalized `dtype`."""
+    m = constant(_scaled, mean, device=frames.device)
+    s = constant(_scaled, std, device=frames.device)
+    return ((frames.to(torch.float32) - m) / s).to(dtype)
+
+
+def _scaled(v):
+    return np.asarray(v, np.float32) * np.float32(255.0)
+
+
+MULAW_MU = 255.0
+
+
+def dequantize_mulaw_u8(wave_u8, dtype=torch.float32):
+    """Inverse of the host-side continuous mu-law companding: uint8 ->
+    waveform in [-1, 1]."""
+    y = wave_u8.to(torch.float32) / 127.5 - 1.0
+    x = torch.sign(y) * (torch.pow(1.0 + MULAW_MU, y.abs()) - 1.0) / MULAW_MU
+    return x.to(dtype)

@@ -1,0 +1,162 @@
+"""Audio DSP frontend: wave -> power spectrogram -> log-mel -> mel "image".
+
+Every stage is a dense matmul against a constant matrix built in numpy
+(windowed DFT basis, slaney mel bank, bicubic resize matrix): torchlibrosa
+`Spectrogram`/`LogmelFilterBank` semantics (n_fft 1024, hop 320, hann,
+center=True, reflect pad, power 2, slaney mel, ref 1, amin 1e-10) and the
+reference HTS-AT `reshape_wav2img` (bicubic, align_corners=True).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs import AudioFrontendConfig
+from ..device import constant
+
+
+# ---------------------------------------------------------------------------
+# constant matrices (numpy, built once per configuration)
+# ---------------------------------------------------------------------------
+
+def hann_window(n: int) -> np.ndarray:
+    """Periodic Hann (torch.hann_window default)."""
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)
+
+
+@functools.lru_cache(maxsize=None)
+def dft_basis(n_fft: int):
+    """Windowed real-DFT bases: (n_fft, n_fft//2+1) cos and -sin matrices."""
+    k = np.arange(n_fft // 2 + 1)
+    n = np.arange(n_fft)
+    ang = 2.0 * np.pi * np.outer(n, k) / n_fft
+    w = hann_window(n_fft)[:, None]
+    return (np.cos(ang) * w).astype(np.float32), (-np.sin(ang) * w).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def stft_basis(n_fft: int) -> np.ndarray:
+    """(n_fft, 2 (n_fft//2+1)): the cos and -sin bases side by side."""
+    return np.concatenate(dft_basis(n_fft), axis=1)
+
+
+def hz_to_mel_slaney(f):
+    f = np.asarray(f, dtype=np.float64)
+    mel = 3.0 * f / 200.0
+    logstep = np.log(6.4) / 27.0
+    return np.where(f >= 1000.0, 15.0 + np.log(np.maximum(f, 1e-10) / 1000.0) / logstep, mel)
+
+
+def mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    f = 200.0 * m / 3.0
+    logstep = np.log(6.4) / 27.0
+    return np.where(m >= 15.0, 1000.0 * np.exp(logstep * (m - 15.0)), f)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -> np.ndarray:
+    """librosa.filters.mel(htk=False, norm='slaney') transposed to
+    (n_fft//2+1, n_mels)."""
+    fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
+    mel_pts = mel_to_hz_slaney(np.linspace(hz_to_mel_slaney(fmin), hz_to_mel_slaney(fmax),
+                                           n_mels + 2))
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1][:, None]
+    upper = ramps[2:] / fdiff[1:][:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (mel_pts[2:n_mels + 2] - mel_pts[:n_mels]))[:, None]
+    return weights.T.astype(np.float32)
+
+
+def _cubic_kernel(x, a=-0.75):
+    x = np.abs(x)
+    return np.where(x <= 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0,
+                    np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * a, 0.0))
+
+
+@functools.lru_cache(maxsize=None)
+def resize_matrix(n_in: int, n_out: int, *, kernel: str = "cubic",
+                  align_corners: bool = True) -> np.ndarray:
+    """(n_out, n_in) matrix M with (M @ x) == torch F.interpolate along one
+    axis (mode 'bicubic' or 'bilinear', with the align_corners semantics)."""
+    M = np.zeros((n_out, n_in), np.float64)
+    if n_in == n_out and align_corners:
+        return np.eye(n_out, dtype=np.float32)
+    if align_corners:
+        scale = (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0
+        src = np.arange(n_out) * scale
+    else:
+        src = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    frac = src - i0
+    if kernel == "cubic":
+        taps, kfn = range(-1, 3), _cubic_kernel
+    else:
+        taps, kfn = range(0, 2), lambda x: np.maximum(0.0, 1.0 - np.abs(x))
+    for tap in taps:
+        idx = np.clip(i0 + tap, 0, n_in - 1)
+        np.add.at(M, (np.arange(n_out), idx), kfn(tap - frac))
+    return M.astype(np.float32)
+
+
+def bicubic_resize_matrix(n_in: int, n_out: int, align_corners: bool = True) -> np.ndarray:
+    return resize_matrix(n_in, n_out, kernel="cubic", align_corners=align_corners)
+
+
+# ---------------------------------------------------------------------------
+# forward ops
+# ---------------------------------------------------------------------------
+
+def power_spectrogram(wave, cfg: AudioFrontendConfig, compute_dtype=None):
+    """(N, L) -> (N, T, n_fft//2+1) float32 power spectrogram |STFT|^2.
+
+    Reflect pad, framing as ceil(n_fft/hop) strided views of the
+    hop-chunked signal, then ONE GEMM against the windowed DFT basis.
+    `compute_dtype` (e.g. torch.bfloat16) rounds frames and basis to that
+    type; the products and their sum stay float32 in both cases."""
+    n_fft, hop = cfg.n_fft, cfg.hop_size
+    pad = n_fft // 2
+    x = F.pad(wave.to(torch.float32)[:, None], (pad, pad), mode="reflect")[:, 0]
+    N, Lp = x.shape
+    T = wave.shape[1] // hop + 1
+    k = -(-n_fft // hop)
+    need = (T + k - 1) * hop
+    if Lp < need:
+        x = F.pad(x, (0, need - Lp))
+    chunks = x[:, :need].reshape(N, T + k - 1, hop)
+    frames = torch.stack([chunks[:, j:j + T] for j in range(k)], dim=2)
+    frames = frames.reshape(N, T, k * hop)[..., :n_fft]
+    basis = constant(stft_basis, n_fft, device=wave.device)
+    if compute_dtype is not None:
+        frames = frames.to(compute_dtype).to(torch.float32)
+        basis = basis.to(compute_dtype).to(torch.float32)
+    y = frames @ basis
+    Fb = n_fft // 2 + 1
+    re, im = y[..., :Fb], y[..., Fb:]
+    return re * re + im * im
+
+
+def logmel(power, cfg: AudioFrontendConfig):
+    """(N, T, F) power -> (N, T, mel) log-mel dB (ref 1, top_db None)."""
+    bank = constant(mel_filterbank, cfg.sample_rate, cfg.n_fft, cfg.mel_bins, cfg.fmin,
+                    cfg.fmax, device=power.device)
+    return 10.0 * torch.log10(torch.clamp(power @ bank, min=cfg.amin))
+
+
+def reshape_wav2img(x, cfg: AudioFrontendConfig):
+    """(N, T, mel) -> (N, spec, spec, 1) mel image: bicubic-resize T to
+    spec*freq_ratio, then fold `freq_ratio` time strips along the rows."""
+    N, T, Fm = x.shape
+    fr = cfg.freq_ratio
+    target_t = cfg.target_t
+    if T < target_t:
+        M = constant(bicubic_resize_matrix, T, target_t, device=x.device, dtype=x.dtype)
+        x = torch.einsum("ntf,st->nsf", x, M)
+    x = x.transpose(1, 2).reshape(N, Fm, fr, target_t // fr)
+    x = x.transpose(1, 2).reshape(N, fr * Fm, target_t // fr)
+    return x[..., None]

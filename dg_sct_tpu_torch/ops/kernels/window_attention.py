@@ -1,0 +1,49 @@
+"""K1: the window-attention core (CUDA kernel `csrc/window_attention.cu`).
+
+Replaces `dg_sct_tpu/ops/pallas/window_attention.py:73` `fused_window_attention`.
+Per window and head, with q, k, v in native (Bw, N, H, D) layout and q
+already scaled: s = q k^T + bias[h] (+ mask[w mod nW]); float32 softmax; p
+rounded to the output type; out = p . v with float32 sums.
+"""
+from __future__ import annotations
+
+import torch
+
+from .build import CudaKernel, I, P, check_cuda, check_shape, dtype_code, ptr, stream_of
+
+KERNEL = CudaKernel("window_attention", "k1_window_attention",
+                    [P, P, P, P, P, P, I, I, I, I, I, I, P])
+
+
+def window_attention_plain(q, k, v, bias, mask=None, *, nW=1):
+    """The kernel's arithmetic in PyTorch: (Bw, N, H, D) -> (Bw, N, H, D)."""
+    Bw, N, H, D = q.shape
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) + bias.float()[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(Bw // nW, nW, H, N, N) + mask.float()[None, :, None]).reshape(Bw, H, N, N)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(q.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(q.dtype)
+
+
+def window_attention(q, k, v, bias, mask=None, *, nW=1):
+    """K1 on a CUDA tensor; the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, mask, nW=nW)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention: no kernel for device {q.device}")
+    Bw, N, H, D = q.shape
+    if mask is not None:
+        nW = mask.shape[0]
+    if Bw % nW:
+        raise ValueError(f"window_attention: {Bw} windows are not a multiple of nW={nW}")
+    check_cuda("window_attention", q, k=k, v=v, bias=bias, mask=mask, q=q)
+    check_shape("window_attention", "k", k, q.shape)
+    check_shape("window_attention", "v", v, q.shape)
+    check_shape("window_attention", "bias", bias, (H, N, N))
+    check_shape("window_attention", "mask", mask, (nW, N, N))
+    out = torch.empty_like(q)
+    KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(mask), ptr(out),
+                  Bw, N, H, D, nW, dtype_code(q), stream_of(q))
+    return out

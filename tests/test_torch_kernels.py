@@ -1,0 +1,158 @@
+"""The plain versions of the port's three CUDA kernels against the JAX
+package's Pallas kernels run in interpret mode, on the same numpy inputs in
+float32 (JAX matmul precision "highest"). The wrappers take these plain
+versions for CPU tensors; CUDA tensors launch the kernels (chip_smoke.py
+holds each kernel against its plain version on the card). Tolerance: atol
+1e-4, rtol 1e-3."""
+import math
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from dg_sct_tpu.ops import windows as JW
+from dg_sct_tpu.ops.basic import grouped_linear_init
+from dg_sct_tpu.ops.pallas import adapter_bottleneck as JK3
+from dg_sct_tpu.ops.pallas import block_attention as JK2
+from dg_sct_tpu.ops.pallas import window_attention as JK1
+from dg_sct_tpu_torch.ops import windows as PW
+from dg_sct_tpu_torch.ops.kernels import adapter_bottleneck as PK3
+from dg_sct_tpu_torch.ops.kernels import block_attention as PK2
+from dg_sct_tpu_torch.ops.kernels import window_attention as PK1
+from torch_port_helpers import to_numpy, to_torch
+
+ATOL, RTOL = 1e-4, 1e-3
+
+
+def close(port, ref):
+    np.testing.assert_allclose(np.asarray(port), np.asarray(ref), atol=ATOL, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# K1: window-attention core
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nW,N,H,D,masked", [(4, 16, 2, 8, False), (4, 16, 2, 8, True),
+                                             (4, 64, 4, 24, True), (1, 36, 3, 32, False)])
+def test_k1_plain_matches_pallas(nW, N, H, D, masked):
+    rs = np.random.RandomState(0)
+    Bw = 2 * nW
+    q, k, v = (rs.randn(Bw, N, H, D).astype(np.float32) * s for s in (0.3, 0.3, 1.0))
+    bias = rs.randn(H, N, N).astype(np.float32) * 0.3
+    mask = np.where(rs.rand(nW, N, N) > 0.7, -100.0, 0.0).astype(np.float32) if masked else None
+    ref = JK1.fused_window_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+        None if mask is None else jnp.asarray(mask), nW=nW, interpret=True)
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    close(PK1.window_attention_plain(t(q), t(k), t(v), t(bias), t(mask), nW=nW), ref)
+    # the wrapper on CPU tensors takes the same plain version
+    close(PK1.window_attention(t(q), t(k), t(v), t(bias), t(mask), nW=nW), ref)
+
+
+def test_wrappers_raise_without_a_kernel_for_the_device():
+    q = torch.zeros((2, 4, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        PK1.window_attention(q, q, q, torch.zeros((1, 4, 4), device="meta"))
+    x = torch.zeros((3, 8), device="meta")
+    w = torch.zeros((2, 4, 1), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        PK3.bottleneck_rows(x, w, None, None, None, None, None, None, None, has_ln1=False)
+
+
+# ---------------------------------------------------------------------------
+# K2: attention half-block
+# ---------------------------------------------------------------------------
+
+def _k2_params(kind, C, heads, ws, seed):
+    rs = np.random.RandomState(seed)
+    key = jax.random.PRNGKey(seed)
+    if kind == "v1":
+        attn = JW.attention_v1_init(key, C, ws, heads)
+    else:
+        attn = JW.attention_v2_init(key, C, heads)
+        attn["q_bias"] = jnp.asarray(0.1 * rs.randn(C).astype(np.float32))
+        attn["v_bias"] = jnp.asarray(0.1 * rs.randn(C).astype(np.float32))
+        attn["logit_scale"] = jnp.asarray(
+            (math.log(10.0) + 0.5 * rs.randn(heads, 1, 1)).astype(np.float32))
+    params = {"attn": attn,
+              "norm1": {"scale": jnp.asarray(1.0 + 0.1 * rs.randn(C).astype(np.float32)),
+                        "bias": jnp.asarray(0.1 * rs.randn(C).astype(np.float32))}}
+    return to_numpy(params)
+
+
+@pytest.mark.parametrize("kind,shift,B,H,W,C,heads,ws", [
+    ("v1", 0, 2, 8, 8, 32, 4, 4), ("v1", 2, 2, 8, 8, 32, 4, 4),
+    ("v2", 0, 2, 8, 8, 32, 4, 4), ("v2", 2, 2, 8, 8, 32, 4, 4),
+    ("v2", 2, 1, 12, 8, 16, 2, 4),      # rectangular, several row strips, shifted
+    ("v1", 4, 1, 16, 16, 48, 2, 8),     # HTS-AT-like head dim 24, 64-token windows
+])
+def test_k2_plain_matches_pallas(kind, shift, B, H, W, C, heads, ws):
+    params = _k2_params(kind, C, heads, ws, seed=C + shift)
+    x = np.random.RandomState(1).randn(B, H * W, C).astype(np.float32)
+    ref = JW.fused_half_block(params, jnp.asarray(x), kind=kind, heads=heads, res=(H, W),
+                              ws=ws, shift=shift, interpret=True)
+    got = PW.fused_half_block(to_torch(params), torch.from_numpy(x), kind=kind, heads=heads,
+                              res=(H, W), ws=ws, shift=shift)
+    close(got, ref)
+
+
+def test_k2_plain_direct_call_matches_pallas():
+    """The kernel-level signature: rolled x, dense operands, v2 with mask."""
+    rs = np.random.RandomState(2)
+    B, H, W, C, heads, ws, N = 1, 8, 8, 16, 2, 4, 16
+    a = lambda *s, sc=1.0: (sc * rs.randn(*s)).astype(np.float32)
+    args = [a(B, H, W, C), a(C, 3 * C, sc=0.2), a(3 * C, sc=0.1), a(C, C, sc=0.2),
+            a(C, sc=0.1), 16.0 / (1.0 + np.exp(-a(heads, N, N))), 1.0 + a(C, sc=0.1),
+            a(C, sc=0.1)]
+    mask = JW.shift_attn_mask(H, W, ws, 2)
+    ls = (math.log(10.0) + a(heads, sc=0.3)).astype(np.float32)
+    ref = JK2.fused_attn_half_block(*map(jnp.asarray, args), mask=jnp.asarray(mask),
+                                    logit_scale=jnp.asarray(ls), kind="v2", heads=heads,
+                                    ws=ws, interpret=True)
+    got = PK2.fused_attn_half_block(*map(torch.from_numpy, args), mask=torch.from_numpy(mask),
+                                    logit_scale=torch.from_numpy(ls), kind="v2", heads=heads,
+                                    ws=ws)
+    close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# K3: adapter bottleneck
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C,g,has_ln1,bias,rows", [
+    (96, 2, True, True, 300),      # HTS-AT stage-0 geometry; 300 rows: not a tile multiple
+    (192, 2, False, True, 77),
+    (192, 4, True, False, 100),
+    (64, 4, False, False, 33),
+])
+def test_k3_plain_matches_pallas(C, g, has_ln1, bias, rows):
+    key = jax.random.PRNGKey(C + g)
+    ks = jax.random.split(key, 6)
+    D = C // 8
+    p = {"down": grouped_linear_init(ks[0], C, D, g, bias=bias),
+         "up": grouped_linear_init(ks[1], D, C, g, bias=bias),
+         "ln_post": {"scale": 1.0 + 0.1 * jax.random.normal(ks[2], (C,)),
+                     "bias": 0.1 * jax.random.normal(ks[3], (C,))}}
+    if has_ln1:
+        p["ln_before"] = {"scale": 1.0 + 0.1 * jax.random.normal(ks[4], (C,)),
+                          "bias": 0.1 * jax.random.normal(ks[5], (C,))}
+    p = to_numpy(p)
+    x = np.random.RandomState(3).randn(1, rows, C).astype(np.float32)
+    ref = JK3.fused_bottleneck(p, jnp.asarray(x), has_ln1=has_ln1, interpret=True)
+    got = PK3.fused_bottleneck(to_torch(p), torch.from_numpy(x), has_ln1=has_ln1)
+    close(got, ref)
+
+
+def test_k2_eligibility_follows_the_jax_rule():
+    for C, heads in ((96, 4), (768, 24), (1536, 48), (100, 3)):
+        JW.set_fused_block(True)
+        try:
+            want = JW.fused_block_eligible(C, heads, False)
+        finally:
+            JW.set_fused_block(False)
+        assert PW.fused_block_eligible(C, heads, False, True) == want
+        assert not PW.fused_block_eligible(C, heads, False, False)
+        assert not PW.fused_block_eligible(C, heads, True, True)
+
