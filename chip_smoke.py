@@ -7,8 +7,10 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); TF32 off for matmul and cuDNN;
   2. build the three CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version at every shape of the
-     main path, in float32 and bfloat16, and time kernel, plain version and,
-     for K1, `scaled_dot_product_attention` (a yardstick the port never calls);
+     main path, in float32 and bfloat16, and time kernel, plain version and
+     the yardsticks the port never calls: for K1 `scaled_dot_product_attention`
+     (library_ms), for K2 a composition of library calls (composed_ms); for
+     K2 in bf16 also the device time of each of its kernels (stages_ms);
   4. drive the full-width AVE eval forward (AVEModelConfig(), random weights
      from seed 0, nonzero adapter gates) through AVEInferenceEngine: B=2 clips
      in bf16, 3 predict requests; check outputs, launch counts K1=2, K2=34,
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +77,26 @@ def bound(flops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
 
 
+def stage_ms(fn, reps=5) -> dict:
+    """Device time per call of each kernel `fn` launches (torch.profiler),
+    by kernel name without its arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("dgsct::(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ")
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
 def compare(got, ref, dtype):
     atol, rtol = TOL[dtype]
     g, r = got.float(), ref.float()
@@ -122,9 +145,44 @@ def kernel_cases(cfg):
             + [("adapter_bottleneck", k, n) for k, n in k3.items()])
 
 
+def composed_half_block(x, wqkv, bqkv, wproj, bproj, full_bias, ln_s, ln_b, logit_scale, *,
+                        kind, heads, ws):
+    """K2's function as library calls in x's type: addmm for qkv, SDPA with
+    bias and mask as one additive (Bw, heads, N, N) mask, addmm for proj,
+    layer_norm, the residual. A yardstick only; the port never calls it."""
+    F = torch.nn.functional
+    B, Hs, Ws, C = x.shape
+    D, N, T = C // heads, ws * ws, B * Hs * Ws
+    h = F.layer_norm(x, (C,), ln_s, ln_b, eps=1e-5) if kind == "v1" else x
+    qkv = torch.addmm(bqkv, h.reshape(T, C), wqkv)
+    qkv = qkv.view(B, Hs // ws, ws, Ws // ws, ws, 3, heads, D).permute(5, 0, 1, 3, 6, 2, 4, 7)
+    q, k, v = qkv.reshape(3, -1, heads, N, D).unbind(0)
+    scale = D ** -0.5
+    if kind == "v2":
+        ls = torch.exp(torch.clamp(logit_scale.float(), max=math.log(100.0))).to(x.dtype)
+        q = F.normalize(q, dim=-1) * ls.view(1, heads, 1, 1)
+        k, scale = F.normalize(k, dim=-1), 1.0
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=full_bias, scale=scale)
+    o = o.view(B, Hs // ws, Ws // ws, heads, ws, ws, D).permute(0, 1, 4, 2, 5, 3, 6).reshape(T, C)
+    y = torch.addmm(bproj, o, wproj)
+    if kind == "v2":
+        y = F.layer_norm(y, (C,), ln_s, ln_b, eps=1e-5)
+    return x + y.view(B, Hs, Ws, C)
+
+
+def window_bias(bias, mask, Bw):
+    """bias (H, N, N) plus mask (nW, N, N) or None as one (Bw, H, N, N) tensor."""
+    H, N, _ = bias.shape
+    full = bias[None].expand(Bw, H, N, N)
+    if mask is not None:
+        nW = mask.shape[0]
+        full = (full.reshape(Bw // nW, nW, H, N, N) + mask[None, :, None]).reshape(Bw, H, N, N)
+    return full.contiguous()
+
+
 def run_case(name, key, dtype, gen):
     """Inputs from `gen` on the card -> (kernel fn, plain fn, library fn or
-    None, flops, bytes)."""
+    None, composed fn or None, flops, bytes)."""
     from dg_sct_tpu_torch.ops.kernels import adapter_bottleneck as K3
     from dg_sct_tpu_torch.ops.kernels import block_attention as K2
     from dg_sct_tpu_torch.ops.kernels import window_attention as K1
@@ -140,17 +198,15 @@ def run_case(name, key, dtype, gen):
         mask = None
         if masked:
             mask = torch.as_tensor(shift_attn_mask(Hs, Ws, ws, ws // 2), device=dev).to(dtype)
-        full = bias[None].expand(Bw, H, N, N)
-        if mask is not None:
-            full = (full.reshape(Bw // nW, nW, H, N, N) + mask[None, :, None]).reshape(Bw, H, N, N)
-        full = full.contiguous()
+        full = window_bias(bias, mask, Bw)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=full,
                                                                        scale=1.0)
         flops = 4 * Bw * H * N * N * D
         nbytes = it * (4 * Bw * N * H * D + H * N * N + (nW * N * N if masked else 0))
         return (lambda: K1.window_attention(q, k, v, bias, mask, nW=nW),
-                lambda: K1.window_attention_plain(q, k, v, bias, mask, nW=nW), lib, flops, nbytes)
+                lambda: K1.window_attention_plain(q, k, v, bias, mask, nW=nW), lib, None,
+                flops, nbytes)
     if name == "block_attention":
         kind, B, Hs, Ws, C, heads, ws, shift = key
         N = ws * ws
@@ -170,11 +226,15 @@ def run_case(name, key, dtype, gen):
         kw = dict(kind=kind, heads=heads, ws=ws)
         T = B * Hs * Ws
         Bw = T // N
+        full = window_bias(bias, mask, Bw)
+        composed = lambda: composed_half_block(x, wqkv, bqkv, wproj, bproj, full, ln_s, ln_b,
+                                               logit_scale, **kw)
         flops = 2 * T * C * 4 * C + 4 * Bw * heads * N * N * (C // heads)
         nbytes = it * (2 * T * C + 4 * C * C + 6 * C + heads * N * N
                        + (mask.numel() if shift else 0) + heads)
         return (lambda: K2.fused_attn_half_block(*args, **kw),
-                lambda: K2.fused_attn_half_block_plain(*args, **kw), None, flops, nbytes)
+                lambda: K2.fused_attn_half_block_plain(*args, **kw), None, composed,
+                flops, nbytes)
     rows, C = key
     g, go = 2, C // 16
     x = rnd(rows, C)
@@ -185,7 +245,7 @@ def run_case(name, key, dtype, gen):
     flops = 4 * rows * C * go
     nbytes = it * (2 * rows * C + 2 * C * go + g * go + 5 * C)
     return (lambda: K3.bottleneck_rows(*args, has_ln1=True),
-            lambda: K3.bottleneck_rows_plain(*args, has_ln1=True), None, flops, nbytes)
+            lambda: K3.bottleneck_rows_plain(*args, has_ln1=True), None, None, flops, nbytes)
 
 
 def check_kernels(cfg):
@@ -194,7 +254,7 @@ def check_kernels(cfg):
     rows = []
     for name, key, per_fwd in kernel_cases(cfg):
         for dtype in (torch.float32, torch.bfloat16):
-            kern, plain, lib, flops, nbytes = run_case(name, key, dtype, gen)
+            kern, plain, lib, composed, flops, nbytes = run_case(name, key, dtype, gen)
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err, worst = compare(got, ref, dtype)
@@ -205,7 +265,12 @@ def check_kernels(cfg):
             row = dict(name=name, case=list(key), dtype=str(dtype).replace("torch.", ""),
                        per_forward=per_fwd, max_abs_err=err, kernel_ms=time_ms(kern),
                        plain_ms=time_ms(plain), library_ms=time_ms(lib) if lib else None,
+                       composed_ms=time_ms(composed) if composed else None,
                        bound_ms=b_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
+            if composed:  # the yardstick computes the same function (not a check)
+                row["composed_err"] = (composed().float() - ref.float()).abs().max().item()
+            if name == "block_attention" and dtype == torch.bfloat16:
+                row["stages_ms"] = stage_ms(kern)  # where K2's time goes, kernel by kernel
             rows.append(row)
             print("kernel", json.dumps(row), flush=True)
     return rows
@@ -219,13 +284,13 @@ def kernels_line(rows, counts):
         mine = [r for r in rows if r["name"] == name]
         main = [r for r in mine if r["dtype"] == "bfloat16" and r["per_forward"]]
         tot = lambda k: sum(r["per_forward"] * r[k] for r in main)
-        lib = [r["library_ms"] for r in main]
+        known = lambda k: tot(k) if main and None not in [r[k] for r in main] else None
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=tot("kernel_ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
             bound_by="operations" if tot("ops_ms") >= tot("bytes_ms") else "bytes",
-            library_ms=tot("library_ms") if lib and None not in lib else None))
+            library_ms=known("library_ms"), composed_ms=known("composed_ms")))
     return {"kernels": out}
 
 
@@ -234,10 +299,16 @@ def kernels_line(rows, counts):
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (("K1", ("window_attention_kernel",)),
-                 ("K2", ("qkv_attention_kernel", "proj_kernel", "residual_kernel")),
+                 ("K2", ("block_attn_",)),
                  ("K3", ("bottleneck_kernel",)),
                  ("library GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("memcpy", ("memcpy", "memset")))
+
+
+def kernel_group(name: str) -> str:
+    """The first group of KERNEL_GROUPS whose key is in the kernel's name."""
+    low = name.lower()
+    return next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
 
 
 def profile_forward(eng, wave, frames):
@@ -255,8 +326,7 @@ def profile_forward(eng, wave, frames):
     by_group, by_name = {}, {}
     for e in dev:
         us = e.time_range.elapsed_us()
-        low = e.name.lower()
-        group = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
+        group = kernel_group(e.name)
         by_group[group] = by_group.get(group, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -273,8 +343,10 @@ def profile_forward(eng, wave, frames):
     print(f"profile: one forward of {BATCH} clips: device busy {busy / 1e3:.3f} ms of a "
           f"{span / 1e3:.3f} ms span ({100.0 * (1.0 - busy / span):.1f}% idle), "
           f"{len(dev)} device events; by group: {groups}", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"profile:   {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, us in top[:10] + [kv for kv in top[10:] if kernel_group(kv[0])[0] == "K"]:
+        short = name.replace("dgsct::(anonymous namespace)::", "")
+        print(f"profile:   {us / 1e3:9.3f} ms  {kernel_group(name):5s} {short[:110]}", flush=True)
 
 
 def run_model(cfg):
@@ -368,10 +440,13 @@ def main() -> int:
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({build.build_dir()})", flush=True)
     for name in libs:
-        log = (build.build_dir() / f"{name}.log").read_text().splitlines()
-        for line in log:
-            if "Used" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        entry = "?"
+        for line in (build.build_dir() / f"{name}.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "Used" in line or "spill" in line:
+                print(f"ptxas {name} {entry[:100]}: {line.strip()}")
 
     cfg = AVEModelConfig()
     rows = check_kernels(cfg)

@@ -15,13 +15,14 @@ import math
 import torch
 
 from ..basic import layer_norm
-from .build import CudaKernel, I, P, check_cuda, check_shape, dtype_code, ptr, stream_of
+from .build import (CudaKernel, I, P, check_aligned, check_cuda, check_shape, dtype_code,
+                    ptr, stream_of)
 
-KERNEL = CudaKernel("block_attention", "k2_block_attention", [P] * 13 + [I] * 8 + [P])
+KERNEL = CudaKernel("block_attention", "k2_block_attention", [P] * 14 + [I] * 8 + [P])
 
 KINDS = {"v1": 1, "v2": 2}
-MAX_TOKENS = 144     # window tokens the kernel's product tile holds
-MAX_HEAD_DIM = 32    # 3 D <= 96 columns
+MAX_TOKENS = 144     # window tokens: nine 16-row query tiles
+MAX_HEAD_DIM = 32    # four 8-column output tiles; a multiple of 8 (16-byte rows)
 
 
 def fused_attn_half_block_plain(x, wqkv, bqkv, wproj, bproj, bias, ln_scale, ln_bias,
@@ -75,9 +76,10 @@ def fused_attn_half_block(x, wqkv, bqkv, wproj, bproj, bias, ln_scale, ln_bias,
     if H % ws or W % ws or C % heads:
         raise ValueError(f"fused_attn_half_block: {H}x{W}x{C} does not tile into "
                          f"{ws}x{ws} windows of {heads} heads")
-    if N > MAX_TOKENS or C // heads > MAX_HEAD_DIM:
+    if N > MAX_TOKENS or C // heads > MAX_HEAD_DIM or (C // heads) % 8:
         raise ValueError(f"fused_attn_half_block: window of {N} tokens, head dim "
-                         f"{C // heads}: the kernel takes <= {MAX_TOKENS} and <= {MAX_HEAD_DIM}")
+                         f"{C // heads}: the kernel takes <= {MAX_TOKENS} and a multiple "
+                         f"of 8 <= {MAX_HEAD_DIM}")
     if kind == "v2" and logit_scale is None:
         raise ValueError("fused_attn_half_block: v2 needs logit_scale")
     name = "fused_attn_half_block"
@@ -90,11 +92,15 @@ def fused_attn_half_block(x, wqkv, bqkv, wproj, bproj, bias, ln_scale, ln_bias,
                           ("mask", mask, ((H // ws) * (W // ws), N, N)),
                           ("logit_scale", logit_scale, (heads,))):
         check_shape(name, key, t, shape)
+    check_aligned(name, x=x, wqkv=wqkv, wproj=wproj, bias=bias, mask=mask)
+    # scratch: q, k, v per (window, head) in float32; the attention output
+    # (v1: LN1(x) first) in x's type; v2's float32 proj output for LN1
+    qkv = torch.empty(3 * x.numel(), device=x.device, dtype=torch.float32)
     attn = torch.empty_like(x)
-    y = torch.empty(x.shape, device=x.device, dtype=torch.float32)
+    y = torch.empty(x.shape, device=x.device, dtype=torch.float32) if kind == "v2" else None
     out = torch.empty_like(x)
     KERNEL.launch(ptr(x), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(bproj), ptr(bias),
                   ptr(ln_scale), ptr(ln_bias), ptr(mask),
-                  ptr(logit_scale if kind == "v2" else None), ptr(attn), ptr(y), ptr(out),
-                  B, H, W, C, heads, ws, KINDS[kind], dtype_code(x), stream_of(x))
+                  ptr(logit_scale if kind == "v2" else None), ptr(qkv), ptr(attn), ptr(y),
+                  ptr(out), B, H, W, C, heads, ws, KINDS[kind], dtype_code(x), stream_of(x))
     return out

@@ -145,6 +145,14 @@ def check_cuda(name: str, ref, **tensors):
             raise ValueError(f"{name}: {key} is not contiguous")
 
 
+def check_aligned(name: str, **tensors):
+    """Each operand (None: absent) starts on a 16-byte boundary, as cp.async
+    copies and paired loads need."""
+    for key, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not 16-byte aligned")
+
+
 def check_shape(name: str, key: str, t, shape):
     if t is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -9,10 +9,13 @@ from __future__ import annotations
 
 import torch
 
-from .build import CudaKernel, I, P, check_cuda, check_shape, dtype_code, ptr, stream_of
+from .build import (CudaKernel, I, P, check_aligned, check_cuda, check_shape, dtype_code,
+                    ptr, stream_of)
 
 KERNEL = CudaKernel("window_attention", "k1_window_attention",
                     [P, P, P, P, P, P, I, I, I, I, I, I, P])
+MAX_TOKENS = 144     # nine 16-row query tiles
+MAX_HEAD_DIM = 32    # four 8-column output tiles; a multiple of 8 (16-byte rows)
 
 
 def window_attention_plain(q, k, v, bias, mask=None, *, nW=1):
@@ -38,11 +41,15 @@ def window_attention(q, k, v, bias, mask=None, *, nW=1):
         nW = mask.shape[0]
     if Bw % nW:
         raise ValueError(f"window_attention: {Bw} windows are not a multiple of nW={nW}")
+    if N > MAX_TOKENS or D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"window_attention: window of {N} tokens, head dim {D}: the kernel "
+                         f"takes <= {MAX_TOKENS} and a multiple of 8 <= {MAX_HEAD_DIM}")
     check_cuda("window_attention", q, k=k, v=v, bias=bias, mask=mask, q=q)
     check_shape("window_attention", "k", k, q.shape)
     check_shape("window_attention", "v", v, q.shape)
     check_shape("window_attention", "bias", bias, (H, N, N))
     check_shape("window_attention", "mask", mask, (nW, N, N))
+    check_aligned("window_attention", q=q, k=k, v=v, bias=bias, mask=mask)
     out = torch.empty_like(q)
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(mask), ptr(out),
                   Bw, N, H, D, nW, dtype_code(q), stream_of(q))

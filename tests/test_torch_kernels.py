@@ -4,7 +4,10 @@ float32 (JAX matmul precision "highest"). The wrappers take these plain
 versions for CPU tensors; CUDA tensors launch the kernels (chip_smoke.py
 holds each kernel against its plain version on the card). Tolerance: atol
 1e-4, rtol 1e-3."""
+import importlib.util
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -35,7 +38,8 @@ def close(port, ref):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("nW,N,H,D,masked", [(4, 16, 2, 8, False), (4, 16, 2, 8, True),
-                                             (4, 64, 4, 24, True), (1, 36, 3, 32, False)])
+                                             (4, 64, 4, 24, True), (1, 36, 3, 32, False),
+                                             (3, 144, 2, 32, True)])   # Swin's 12x12 windows
 def test_k1_plain_matches_pallas(nW, N, H, D, masked):
     rs = np.random.RandomState(0)
     Bw = 2 * nW
@@ -87,6 +91,10 @@ def _k2_params(kind, C, heads, ws, seed):
     ("v2", 0, 2, 8, 8, 32, 4, 4), ("v2", 2, 2, 8, 8, 32, 4, 4),
     ("v2", 2, 1, 12, 8, 16, 2, 4),      # rectangular, several row strips, shifted
     ("v1", 4, 1, 16, 16, 48, 2, 8),     # HTS-AT-like head dim 24, 64-token windows
+    # the geometries the CUDA kernels pad: 144-token windows (nine 16-row tiles)
+    # on Swin's 24x24 grid shifted by 6, and head dim 24 over two row strips
+    ("v2", 6, 1, 24, 24, 64, 2, 12),
+    ("v1", 4, 2, 16, 24, 48, 2, 8),
 ])
 def test_k2_plain_matches_pallas(kind, shift, B, H, W, C, heads, ws):
     params = _k2_params(kind, C, heads, ws, seed=C + shift)
@@ -156,3 +164,27 @@ def test_k2_eligibility_follows_the_jax_rule():
         assert not PW.fused_block_eligible(C, heads, False, False)
         assert not PW.fused_block_eligible(C, heads, True, True)
 
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's profile groups
+# ---------------------------------------------------------------------------
+
+def test_every_csrc_kernel_falls_in_its_profile_group():
+    """chip_smoke.py sums the profiled device time by kernel group; every
+    __global__ kernel of csrc/ must land in its source's group (K1, K2, K3),
+    never in "other". chip_smoke.py imports only torch and numpy at top level."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke_groups", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = {"window_attention": "K1", "block_attention": "K2", "adapter_bottleneck": "K3"}
+    kernel = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)\s*)?"
+                        r"(\w+)\s*\(")
+    csrc = root / "dg_sct_tpu_torch" / "csrc"
+    found = {f.name: kernel.findall(f.read_text())
+             for f in sorted(csrc.iterdir()) if f.suffix in (".cu", ".cuh")}
+    assert {n for n, ks in found.items() if ks} == {f"{s}.cu" for s in want}, found
+    for fname, names in found.items():
+        for name in names:
+            profiled = f"void dgsct::(anonymous namespace)::{name}<__nv_bfloat16>(float const*)"
+            assert smoke.kernel_group(profiled) == want[Path(fname).stem], (fname, name)
