@@ -9,17 +9,26 @@ Phases, each fatal on failure:
   3. hold each kernel against its plain PyTorch version at every shape of the
      main path, in float32 and bfloat16, and time kernel, plain version and
      the yardsticks the port never calls: for K1 `scaled_dot_product_attention`
-     (library_ms), for K2 a composition of library calls (composed_ms); for
-     K2 in bf16 also the device time of each of its kernels (stages_ms);
+     (library_ms), for K2 and K3 a composition of library calls (composed_ms);
+     for K2 in bf16 also the device time of each of its kernels (stages_ms).
+     Times as the host issues the calls (ms) and, for kernel and yardsticks,
+     the card's time alone (device_ms). K3 also at shapes off the main path:
+     ragged row tiles, no LN_before, four groups of 24 or 48 channels;
   4. drive the full-width AVE eval forward (AVEModelConfig(), random weights
      from seed 0, nonzero adapter gates) through AVEInferenceEngine: B=2 clips
      in bf16, 3 predict requests; check outputs, launch counts K1=2, K2=34,
      K3=48 per forward, and one float32 kernel forward against the float32
      plain forward.
 It then prints the kernels line, the card line and, last, the ok line.
+
+    python3 chip_smoke.py --only adapter_bottleneck   # phases 1-3 for K3 alone
+
+`--only NAME` (repeatable) checks and times only the named kernels and skips
+phase 4; such a run prints no ok line.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -33,6 +42,7 @@ import torch
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense; f32 without TF32
 PEAK_BYTES = 3.35e12
+SPIN_HZ = 2.0e9  # cycles a second for torch.cuda._sleep: above the H100's 1.98 GHz boost
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 2e-2)}  # (atol, rtol)
 MODEL_TOL = (2e-3, 2e-3)  # f32 kernel forward vs f32 plain forward (atol, rtol)
 BATCH = 2
@@ -54,8 +64,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, budget_ms=60.0) -> float:
-    """Mean time of one call on the card, by CUDA events over a batch of calls."""
+def time_ms(fn, budget_ms=60.0):
+    """Mean time of one call in ms, by CUDA events over a batch of calls, as
+    (ms, device_ms, host_ms). ms: the calls as the host issues them, so a
+    call whose host side outlasts its kernels reads as the host's time, as
+    it does in serving. device_ms: the same batch queued behind a spin kernel
+    that holds the stream until the host has issued it, so the events time
+    the card alone. host_ms: the host's time to issue one call."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -64,12 +79,23 @@ def time_ms(fn, budget_ms=60.0) -> float:
     end.record()
     torch.cuda.synchronize()
     iters = int(min(50, max(3, budget_ms / max(start.elapsed_time(end), 1e-3))))
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    torch.cuda._sleep(int(min(0.5, 2.0 * host_s + 1e-3) * SPIN_HZ))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms, start.elapsed_time(end) / iters, host_ms
 
 
 def bound(flops, nbytes, dtype):
@@ -139,7 +165,8 @@ def kernel_cases(cfg):
                     k2[key] = k2.get(key, 0) + 1
     for (v_dim, v_tok, a_dim, a_tok) in ave_adapter_dims(cfg.swin, cfg.htsat):
         for C, N in ((v_dim, v_tok), (a_dim, a_tok)):
-            k3[(frames * N, C)] = k3.get((frames * N, C), 0) + 2
+            key = (frames * N, C, 2, C // 16, True)  # (rows, C, groups, go, has_ln1)
+            k3[key] = k3.get(key, 0) + 2
     return ([("window_attention", k, n) for k, n in k1.items()]
             + [("block_attention", k, n) for k, n in k2.items()]
             + [("adapter_bottleneck", k, n) for k, n in k3.items()])
@@ -168,6 +195,27 @@ def composed_half_block(x, wqkv, bqkv, wproj, bproj, full_bias, ln_s, ln_b, logi
     if kind == "v2":
         y = F.layer_norm(y, (C,), ln_s, ln_b, eps=1e-5)
     return x + y.view(B, Hs, Ws, C)
+
+
+# K3 off the main path, (rows, C, groups, go, has_ln1): ragged last row tiles
+# (one clip: 360 rows at C = 1536), no LN_before, and the four groups of the
+# AVS and AVQA adapters (C/g = 24 or 48)
+K3_EXTRA = ((360, 1536, 2, 96, True), (360, 1536, 2, 96, False), (40, 768, 2, 48, True),
+            (2880, 768, 2, 48, False), (100, 96, 4, 3, True), (77, 192, 4, 6, False))
+
+
+def composed_bottleneck(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, *, has_ln1):
+    """K3's function as library calls in x's type: layer_norm, grouped baddbmm
+    for down plus bias, relu, grouped baddbmm for up plus bias, layer_norm. A
+    yardstick only; the port never calls it."""
+    F = torch.nn.functional
+    rows, C = x.shape
+    g, gi, go = wd.shape
+    z = F.layer_norm(x, (C,), ln1s, ln1b, eps=1e-5) if has_ln1 else x
+    z = z.to(x.dtype).view(rows, g, gi).transpose(0, 1)
+    h = torch.relu(torch.baddbmm(bd.view(g, 1, go), z, wd)).to(x.dtype)
+    o = torch.baddbmm(bu.view(g, 1, gi), h, wu)
+    return F.layer_norm(o.transpose(0, 1).reshape(rows, C), (C,), ln2s, ln2b, eps=1e-5)
 
 
 def window_bias(bias, mask, Bw):
@@ -235,44 +283,62 @@ def run_case(name, key, dtype, gen):
         return (lambda: K2.fused_attn_half_block(*args, **kw),
                 lambda: K2.fused_attn_half_block_plain(*args, **kw), None, composed,
                 flops, nbytes)
-    rows, C = key
-    g, go = 2, C // 16
+    rows, C, g, go, has_ln1 = key
     x = rnd(rows, C)
     wd, wu = rnd(g, C // g, go, scale=(C // g) ** -0.5), rnd(g, go, C // g, scale=go ** -0.5)
     bd, bu = rnd(g * go, scale=0.1), rnd(C, scale=0.1)
     ln = [(1.0 + rnd(C, scale=0.1).float()).to(dtype), rnd(C, scale=0.1)] * 2
     args = (x, wd, bd, wu, bu, *ln)
     flops = 4 * rows * C * go
-    nbytes = it * (2 * rows * C + 2 * C * go + g * go + 5 * C)
-    return (lambda: K3.bottleneck_rows(*args, has_ln1=True),
-            lambda: K3.bottleneck_rows_plain(*args, has_ln1=True), None, None, flops, nbytes)
+    nbytes = it * (2 * rows * C + 2 * C * go + g * go + (5 if has_ln1 else 3) * C)
+    return (lambda: K3.bottleneck_rows(*args, has_ln1=has_ln1),
+            lambda: K3.bottleneck_rows_plain(*args, has_ln1=has_ln1), None,
+            lambda: composed_bottleneck(*args, has_ln1=has_ln1), flops, nbytes)
 
 
-def check_kernels(cfg):
+def check_case(name, key, dtype, gen):
+    """Kernel and plain version on the same inputs, held at TOL; returns the
+    case's functions and its max abs error."""
+    kern, plain, lib, composed, flops, nbytes = run_case(name, key, dtype, gen)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err, worst = compare(got, ref, dtype)
+    if worst > 1.0:
+        raise AssertionError(f"{name} {key} {dtype}: max error {err:.3e} exceeds "
+                             f"atol/rtol {TOL[dtype]}")
+    return kern, plain, lib, composed, flops, nbytes, ref, err
+
+
+def check_kernels(cfg, only=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
     for name, key, per_fwd in kernel_cases(cfg):
+        if only and name not in only:
+            continue
         for dtype in (torch.float32, torch.bfloat16):
-            kern, plain, lib, composed, flops, nbytes = run_case(name, key, dtype, gen)
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err, worst = compare(got, ref, dtype)
-            if worst > 1.0:
-                raise AssertionError(f"{name} {key} {dtype}: max error {err:.3e} exceeds "
-                                     f"atol/rtol {TOL[dtype]}")
+            kern, plain, lib, composed, flops, nbytes, ref, err = check_case(name, key, dtype, gen)
             b_ms, ops_ms, bytes_ms = bound(flops, nbytes, dtype)
+            k_ms, k_dev, k_host = time_ms(kern)
+            l_ms, l_dev, _ = time_ms(lib) if lib else (None, None, None)
+            c_ms, c_dev, _ = time_ms(composed) if composed else (None, None, None)
             row = dict(name=name, case=list(key), dtype=str(dtype).replace("torch.", ""),
-                       per_forward=per_fwd, max_abs_err=err, kernel_ms=time_ms(kern),
-                       plain_ms=time_ms(plain), library_ms=time_ms(lib) if lib else None,
-                       composed_ms=time_ms(composed) if composed else None,
-                       bound_ms=b_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
+                       per_forward=per_fwd, max_abs_err=err, kernel_ms=k_ms,
+                       kernel_device_ms=k_dev, kernel_host_ms=k_host, plain_ms=time_ms(plain)[0],
+                       library_ms=l_ms, library_device_ms=l_dev, composed_ms=c_ms,
+                       composed_device_ms=c_dev, bound_ms=b_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
             if composed:  # the yardstick computes the same function (not a check)
                 row["composed_err"] = (composed().float() - ref.float()).abs().max().item()
             if name == "block_attention" and dtype == torch.bfloat16:
                 row["stages_ms"] = stage_ms(kern)  # where K2's time goes, kernel by kernel
             rows.append(row)
             print("kernel", json.dumps(row), flush=True)
+    if not only or "adapter_bottleneck" in only:
+        for key in K3_EXTRA:  # checks only: no time, no part of the kernels line
+            for dtype in (torch.float32, torch.bfloat16):
+                err = check_case("adapter_bottleneck", key, dtype, gen)[-1]
+                print(f"check adapter_bottleneck {list(key)} {dtype}: max abs err {err:.3e} "
+                      f"(atol/rtol {TOL[dtype]})", flush=True)
     return rows
 
 
@@ -282,15 +348,19 @@ def kernels_line(rows, counts):
     out = []
     for name, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
+        if not mine:  # not checked in this run (--only)
+            continue
         main = [r for r in mine if r["dtype"] == "bfloat16" and r["per_forward"]]
         tot = lambda k: sum(r["per_forward"] * r[k] for r in main)
         known = lambda k: tot(k) if main and None not in [r[k] for r in main] else None
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=tot("kernel_ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
+            ms=tot("kernel_ms"), device_ms=tot("kernel_device_ms"), plain_ms=tot("plain_ms"),
+            bound_ms=tot("bound_ms"),
             bound_by="operations" if tot("ops_ms") >= tot("bytes_ms") else "bytes",
-            library_ms=known("library_ms"), composed_ms=known("composed_ms")))
+            library_ms=known("library_ms"), library_device_ms=known("library_device_ms"),
+            composed_ms=known("composed_ms"), composed_device_ms=known("composed_device_ms")))
     return {"kernels": out}
 
 
@@ -423,6 +493,10 @@ def run_model(cfg):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", action="append", choices=sorted(SOURCES),
+                    help="check and time only this kernel (repeatable); skips the model")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -449,7 +523,12 @@ def main() -> int:
                 print(f"ptxas {name} {entry[:100]}: {line.strip()}")
 
     cfg = AVEModelConfig()
-    rows = check_kernels(cfg)
+    rows = check_kernels(cfg, args.only)
+    if args.only:
+        print(json.dumps(kernels_line(rows, {name: None for name in SOURCES})))
+        print(card)
+        print(f"partial run ({', '.join(args.only)}): no model, no ok line", flush=True)
+        return 0
     counts = run_model(cfg)
     print(json.dumps(kernels_line(rows, counts)))
     print(card)

@@ -31,11 +31,14 @@ def bottleneck_rows_plain(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, *, has_ln1)
 
 def bottleneck_rows(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, *, has_ln1):
     """K3 on a CUDA tensor; the plain version on a CPU tensor. x (rows, C);
-    wd (g, C/g, go); bd (g*go,); wu (g, go, C/g); bu, ln* (C,)."""
-    if x.device.type == "cpu":
+    wd (g, C/g, go); bd (g*go,); wu (g, go, C/g); bu, ln* (C,). The kernel
+    raises for what its C entry refuses (in bfloat16: C/g not a multiple of 8,
+    g * ceil(go/8) > 32, an operand not 16-byte aligned)."""
+    kind = x.device.type
+    if kind == "cpu":
         return bottleneck_rows_plain(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b,
                                      has_ln1=has_ln1)
-    if x.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"bottleneck_rows: no kernel for device {x.device}")
     rows, C = x.shape
     g, gi, go = wd.shape
@@ -64,8 +67,9 @@ def fused_bottleneck(params, x, *, has_ln1: bool):
     g, _, go = wd.shape
     zeros = lambda n: torch.zeros((n,), device=x.device, dtype=x.dtype)
     ones = lambda n: torch.ones((n,), device=x.device, dtype=x.dtype)
-    bd = params["down"].get("bias", zeros(g * go))
-    bu = params["up"].get("bias", zeros(C))
+    # fold_eval gives both products a bias; make zeros only where one is absent
+    bd = params["down"]["bias"] if "bias" in params["down"] else zeros(g * go)
+    bu = params["up"]["bias"] if "bias" in params["up"] else zeros(C)
     ln1 = params["ln_before"] if has_ln1 else {"scale": ones(C), "bias": zeros(C)}
     ln2 = params["ln_post"]
     t = lambda a: a.to(x.dtype).contiguous()

@@ -122,20 +122,29 @@ def ptr(t) -> int | None:
 
 
 def stream_of(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card as a raw handle. The wrappers run this on
+    every call, so it skips building a `torch.cuda.Stream` object (the raw
+    query is the one torch's own generated kernel launchers use)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dtype_code(t) -> int:
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if t.dtype not in codes:
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
         raise ValueError(f"kernels take float32 or bfloat16, not {t.dtype}")
-    return codes[t.dtype]
+    return code
 
 
 def check_cuda(name: str, ref, **tensors):
-    """Every operand lies on ref's card, has ref's dtype and is contiguous."""
+    """Every operand lies on ref's card, has ref's dtype and is contiguous.
+    One cheap test per operand first: the wrappers run it on every call."""
+    dev, dt = ref.get_device(), ref.dtype
     for key, t in tensors.items():
-        if t is None:
+        if t is None or (t.is_cuda and t.get_device() == dev and t.dtype == dt
+                         and t.is_contiguous()):
             continue
         if t.device != ref.device:
             raise ValueError(f"{name}: {key} is on {t.device}, not {ref.device}")
@@ -154,5 +163,5 @@ def check_aligned(name: str, **tensors):
 
 
 def check_shape(name: str, key: str, t, shape):
-    if t is not None and tuple(t.shape) != tuple(shape):
+    if t is not None and t.shape != shape:
         raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -55,6 +55,27 @@ def test_k1_plain_matches_pallas(nW, N, H, D, masked):
     close(PK1.window_attention(t(q), t(k), t(v), t(bias), t(mask), nW=nW), ref)
 
 
+@pytest.mark.parametrize("case", ["ok", "device", "dtype", "strided", "shape"])
+def test_operand_checks(case):
+    """The checks every wrapper runs before a launch: same device, dtype and
+    contiguity as the reference operand, and the expected shape."""
+    from dg_sct_tpu_torch.ops.kernels.build import check_cuda, check_shape
+
+    ref = torch.zeros((4, 8))
+    t = {"ok": torch.ones((4, 8)), "device": torch.zeros((4, 8), device="meta"),
+         "dtype": torch.zeros((4, 8), dtype=torch.float64), "strided": torch.zeros((8, 4)).t(),
+         "shape": torch.zeros((4, 7))}[case]
+    want = {"device": "is on", "dtype": "float64", "strided": "not contiguous", "shape": "shape"}
+    if case == "ok":
+        check_cuda("k", ref, a=ref, b=t, c=None)
+        check_shape("k", "b", t, (4, 8))
+        check_shape("k", "b", t, ref.shape)
+        return
+    with pytest.raises(ValueError, match=want[case]):
+        check_cuda("k", ref, a=ref, b=t)
+        check_shape("k", "b", t, (4, 8))
+
+
 def test_wrappers_raise_without_a_kernel_for_the_device():
     q = torch.zeros((2, 4, 1, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -134,6 +155,10 @@ def test_k2_plain_direct_call_matches_pallas():
     (192, 2, False, True, 77),
     (192, 4, True, False, 100),
     (64, 4, False, False, 33),
+    (96, 4, True, True, 40),    # C/g = 24: the four groups of the AVS and AVQA adapters
+    # the widths whose weights the bf16 kernel streams in several slabs
+    (768, 2, True, True, 40),
+    (1536, 2, True, True, 20),
 ])
 def test_k3_plain_matches_pallas(C, g, has_ln1, bias, rows):
     key = jax.random.PRNGKey(C + g)
@@ -166,17 +191,24 @@ def test_k2_eligibility_follows_the_jax_rule():
 
 
 # ---------------------------------------------------------------------------
-# chip_smoke.py's profile groups
+# chip_smoke.py: profile groups and the library yardsticks
 # ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """chip_smoke.py as a module; it imports only torch and numpy at top level."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
 
 def test_every_csrc_kernel_falls_in_its_profile_group():
     """chip_smoke.py sums the profiled device time by kernel group; every
     __global__ kernel of csrc/ must land in its source's group (K1, K2, K3),
-    never in "other". chip_smoke.py imports only torch and numpy at top level."""
+    never in "other"."""
     root = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("chip_smoke_groups", root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     want = {"window_attention": "K1", "block_attention": "K2", "adapter_bottleneck": "K3"}
     kernel = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)\s*)?"
                         r"(\w+)\s*\(")
@@ -188,3 +220,48 @@ def test_every_csrc_kernel_falls_in_its_profile_group():
         for name in names:
             profiled = f"void dgsct::(anonymous namespace)::{name}<__nv_bfloat16>(float const*)"
             assert smoke.kernel_group(profiled) == want[Path(fname).stem], (fname, name)
+
+
+@pytest.mark.parametrize("case", ["k3-96-2-f32", "k3-96-2-bf16", "k3-192-4-f32", "k3-192-4-bf16",
+                                  "k2-v1", "k2-v2"])
+def test_chip_smoke_yardsticks_match_plain(case):
+    """The library compositions chip_smoke.py times beside K3 and K2
+    (composed_bottleneck, composed_half_block) compute the kernels' function:
+    held against the plain versions on CPU tensors. K3 in float32 at atol /
+    rtol 1e-5, in bfloat16 at 2e-2 (the composition also rounds o to bf16
+    before LN_post); K2 in float32 at 1e-5."""
+    smoke = _chip_smoke()
+    rs = np.random.RandomState(7)
+    t = lambda *s, sc=1.0: torch.from_numpy((sc * rs.randn(*s)).astype(np.float32))
+    if case.startswith("k3"):
+        _, C, g, dt = case.split("-")
+        C, g = int(C), int(g)
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+        gi, go = C // g, C // 16
+        args = [t(37, C), t(g, gi, go, sc=gi ** -0.5), t(g * go, sc=0.1), t(g, go, gi, sc=go ** -0.5),
+                t(C, sc=0.1), 1.0 + t(C, sc=0.1), t(C, sc=0.1), 1.0 + t(C, sc=0.1), t(C, sc=0.1)]
+        args = [a.to(dtype) for a in args]
+        has_ln1 = g == 2
+        got = smoke.composed_bottleneck(*args, has_ln1=has_ln1)
+        ref = PK3.bottleneck_rows_plain(*args, has_ln1=has_ln1)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), atol=tol, rtol=tol)
+        return
+    kind = case.split("-")[1]
+    B, H, W, C, heads, ws, shift = 1, 8, 8, 32, 2, 4, 2
+    N = ws * ws
+    x = t(B, H, W, C)
+    wqkv, bqkv, wproj, bproj = t(C, 3 * C, sc=C ** -0.5), t(3 * C, sc=0.1), t(C, C, sc=C ** -0.5), t(C, sc=0.1)
+    ln_s, ln_b = 1.0 + t(C, sc=0.1), t(C, sc=0.1)
+    if kind == "v2":
+        bias, logit_scale = 16.0 * torch.sigmoid(t(heads, N, N)), math.log(10.0) + t(heads, sc=0.3)
+    else:
+        bias, logit_scale = t(heads, N, N, sc=0.02), None
+    mask = torch.from_numpy(JW.shift_attn_mask(H, W, ws, shift))
+    full = smoke.window_bias(bias, mask, B * H * W // N)
+    got = smoke.composed_half_block(x, wqkv, bqkv, wproj, bproj, full, ln_s, ln_b, logit_scale,
+                                    kind=kind, heads=heads, ws=ws)
+    ref = PK2.fused_attn_half_block_plain(x, wqkv, bqkv, wproj, bproj, bias, ln_s, ln_b, mask,
+                                          logit_scale, kind=kind, heads=heads, ws=ws)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
