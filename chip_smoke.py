@@ -18,13 +18,26 @@ Phases, each fatal on failure:
      from seed 0, nonzero adapter gates) through AVEInferenceEngine: B=2 clips
      in bf16, 3 predict requests; check outputs, launch counts K1=2, K2=34,
      K3=48 per forward, and one float32 kernel forward against the float32
-     plain forward.
-It then prints the kernels line, the card line and, last, the ok line.
+     plain forward;
+  5. serve through `predict_clips`: a DG-SCT state dict synthesized from the
+     key census of best_82.18.pt goes through the import path (converter,
+     key census, `from_jax`) into a bf16 engine (B=2, chunk=2), which answers
+     7 full-width clips in memory in both wire formats (int16 wave with
+     uint8 RGB; mu-law wave with YUV420), twice each, and once with chunk=3
+     (a padded chunk); checks shapes, finite scores, launch counts of 2/34/48
+     per forward and, for uint8 RGB, agreement with `predict` within bf16
+     TOL; then, if Pillow imports, the same over a 7-video tree of 320x320
+     JPEGs on disk (prints the decoder, native or PIL); then `stream:` lines:
+     clips/s of `predict_clips` over 32 clips per wire format beside
+     `predict`, host-to-device bytes per forward, and the host-to-device
+     copies of a profiled run (time a forward, kind, overlap with kernels).
+It then prints the kernels line (launches from phase 4), the card line and,
+last, the ok line.
 
     python3 chip_smoke.py --only adapter_bottleneck   # phases 1-3 for K3 alone
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phase 4; such a run prints no ok line.
+phases 4 and 5; such a run prints no ok line.
 """
 from __future__ import annotations
 
@@ -492,6 +505,272 @@ def run_model(cfg):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the serving path, from a DG-SCT state dict to predict_clips
+# ---------------------------------------------------------------------------
+
+CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_best_82_18.json"
+CLIPS = 7          # B=2, chunk=2: 4 forwards, the last batch ragged
+STREAM_CLIPS = 32  # clips a timed run
+
+
+def census_state_dict(path, seed=0):
+    """A DG-SCT state dict with exactly the keys, shapes and dtypes of the
+    census at `path`, values from `seed`: weights N(0, 1/fan_in), biases
+    N(0, 0.02^2), LayerNorm and BatchNorm scales near 1, running variances
+    in [0.5, 1.5], adapter gates in [0.2, 0.6], logit scales near log 10."""
+    census = json.loads(Path(path).read_text())
+    rng = np.random.default_rng(seed)
+    normal = lambda shape, std, mean=0.0: (mean + std * rng.standard_normal(
+        shape, dtype=np.float32)).astype(np.float32)
+    sd = {}
+    for k, spec in census.items():
+        shape, dtype = tuple(spec["shape"]), np.dtype(spec["dtype"])
+        if dtype.kind in "iu":
+            sd[k] = np.zeros(shape, dtype)
+        elif k.endswith("running_var"):
+            sd[k] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif k.endswith(("running_mean", ".bias", "_bias")):
+            sd[k] = normal(shape, 0.02)
+        elif k.endswith((".gate", ".gate_av")):
+            sd[k] = rng.uniform(0.2, 0.6, shape).astype(np.float32)
+        elif k.endswith("logit_scale"):
+            sd[k] = normal(shape, 0.1, math.log(10.0))
+        elif len(shape) == 1 and k.endswith(".weight"):  # LayerNorm / BatchNorm scales
+            sd[k] = normal(shape, 0.1, 1.0)
+        else:
+            sd[k] = normal(shape, 1.0 / math.sqrt(max(1, int(np.prod(shape[1:])))))
+    return sd
+
+
+def import_census_model(cfg):
+    """The census state dict through the port's import path: converter,
+    key census, `from_jax` onto the card."""
+    from dg_sct_tpu_torch.utils import torch_convert as TC
+    from dg_sct_tpu_torch.weights import from_jax
+
+    t0 = time.perf_counter()
+    sd = TC.track(census_state_dict(CENSUS))
+    params, state = TC.convert_ave_model(sd)
+    report = TC.census_report(sd)
+    if report["unexplained"]:
+        raise AssertionError(f"census: unexplained keys {report['unexplained'][:10]}")
+    params, state = from_jax(params, state, cfg, device="cuda")
+    print(f"import: {len(sd)} keys of {CENSUS.name}: {len(report['consumed'])} consumed, "
+          f"{len(report['ignored'])} ignored, 0 unexplained; on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return params, state
+
+
+class Clips:
+    """A map-style dataset of distinct seeded full-width clips in memory, in
+    one wire format: int16 wave with uint8 RGB frames, or mu-law wave with
+    YUV420 planes made from the same frames (JFIF, 2x2 chroma means)."""
+
+    def __init__(self, n, cfg, seed, yuv420=False):
+        from dg_sct_tpu_torch.ops.basic import encode_mulaw_u8
+
+        rs = np.random.RandomState(seed)
+        T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.swin.img_size
+        self.wave = (np.clip(0.3 * rs.randn(n, T, L), -1, 1) * 32767).astype(np.int16)
+        self.frames = rs.randint(0, 256, (n, T, S, S, 3), dtype=np.uint8)
+        self.yuv420 = yuv420
+        if yuv420:
+            self.mulaw = encode_mulaw_u8(self.wave)
+            rgb = self.frames.astype(np.float32)
+            ycc = rgb @ np.asarray([[0.299, -0.168736, 0.5], [0.587, -0.331264, -0.418688],
+                                    [0.114, 0.5, -0.081312]], np.float32)
+            ycc[..., 1:] += 128.0
+            ycc = np.clip(np.round(ycc), 0, 255)
+            self.y = ycc[..., 0].astype(np.uint8)
+            uv = ycc[..., 1:].reshape(n, T, S // 2, 2, S // 2, 2, 2).mean((3, 5))
+            self.uv = np.round(uv).astype(np.uint8)
+
+    def __len__(self):
+        return len(self.wave)
+
+    def __getitem__(self, i):
+        if self.yuv420:
+            return {"wave": self.mulaw[i], "image_y": self.y[i], "image_uv": self.uv[i]}
+        return {"wave": self.wave[i], "image": self.frames[i]}
+
+    def bytes_per_forward(self, batch):
+        item = self[0]
+        return batch * sum(v.nbytes for v in item.values())
+
+
+def check_clips(name, eng, ds, per_call, ref=None):
+    """predict_clips with the launch counts read around it; shapes, finite
+    values and, against `ref` (predict's output), agreement within bf16 TOL."""
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    ev, ie, pred = eng.predict_clips(ds)
+    counts = launch_counts()
+    n, T = len(ds), eng.cfg.num_frames
+    if ev.shape != (n, 28) or ie.shape != (n, T) or pred.shape != (n, T):
+        raise AssertionError(f"{name}: shapes {ev.shape} {ie.shape} {pred.shape}")
+    if not (np.isfinite(ev).all() and np.isfinite(ie).all()):
+        raise AssertionError(f"{name}: non-finite scores")
+    want = {k: v * per_call for k, v in PER_FORWARD.items()}
+    if counts != want:
+        raise AssertionError(f"{name}: launch counts {counts}, expected {want}")
+    line = f"serve {name}: {n} clips, launches {counts} ({per_call} forwards)"
+    if ref is not None:
+        atol, rtol = TOL[torch.bfloat16]
+        for got, key in ((ev, "event_scores"), (ie, "is_event_scores")):
+            err = np.abs(got - ref[key])
+            line += f", {key} vs predict max abs diff {err.max():.3e}"
+            if (err > atol + rtol * np.abs(ref[key])).any():
+                raise AssertionError(f"{name}: predict_clips and predict disagree on {key}")
+    print(line, flush=True)
+    return ev, ie
+
+
+def profile_chunk(eng, ds):
+    """One predict_clips of several chunks under torch.profiler: each
+    host-to-device copy's device time, start and share beside kernels, its
+    kind, and the copies' time a forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.predict_clips(ds)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    h2d = sorted((e for e in dev if "htod" in e.name.lower().replace(" ", "")),
+                 key=lambda e: e.time_range.start)
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in dev
+                     if "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
+    forwards = -(-len(ds) // eng.B)
+    staged = {k: eng.B * eng.chunk * v.nbytes for k, v in ds[0].items()}
+    print(f"stream: profile of {len(ds)} clips ({forwards} forwards, chunks of {eng.chunk}): "
+          f"{len(h2d)} host-to-device copies recorded of {len(staged) * forwards // eng.chunk} "
+          f"staged; a chunk stages " + ", ".join(f"{k} {b / 1e6:.3f} MB"
+                                                 for k, b in staged.items()), flush=True)
+    if not h2d:
+        return
+    t0 = min(a for a, _ in kernels) if kernels else h2d[0].time_range.start
+    total = 0.0
+    for e in h2d:
+        s, t = e.time_range.start, e.time_range.end
+        beside = sum(max(0.0, min(t, b) - max(s, a)) for a, b in kernels)
+        total += t - s
+        print(f"stream:   copy {(t - s) / 1e3:.4f} ms at +{(s - t0) / 1e3:.3f} ms, "
+              f"{100.0 * min(beside, t - s) / max(t - s, 1e-9):.1f}% beside kernels, {e.name}",
+              flush=True)
+    per_fwd = total / 1e3 / (len(h2d) / len(staged) * eng.chunk)
+    print(f"stream: host-to-device copies {per_fwd:.4f} ms a forward (recorded copies), kinds "
+          f"{sorted({e.name for e in h2d})}", flush=True)
+
+
+def write_ave_tree(root, n, cfg, size=320, seed=0):
+    """An AVE tree on disk: `n` videos of T JPEG frames (size x size) and
+    int16 waves, with categories, annotations and split files."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    T, L = cfg.num_frames, cfg.htsat.frontend.clip_samples
+    cats = [f"c{i}" for i in range(cfg.num_classes)]
+    (root / "audio").mkdir(parents=True)
+    rows = ["Category&VideoID&Quality&StartTime&EndTime"]
+    for v in range(n):
+        vid = f"v{v:03d}"
+        vdir = root / "frames" / vid
+        vdir.mkdir(parents=True)
+        for t in range(T):
+            Image.fromarray(rs.randint(0, 256, (size, size, 3), dtype=np.uint8)).save(
+                vdir / f"{t:08d}.jpg", quality=90)
+        np.save(root / "audio" / f"{vid}.npy",
+                (np.clip(0.3 * rs.randn(T * L), -1, 1) * 32767).astype(np.int16))
+        rows.append(f"{cats[v % len(cats)]}&{vid}&good&{v % 4}&{6 + v % 4}")
+    (root / "categories.txt").write_text("\n".join(cats) + "\n")
+    for name in ("Annotations.txt", "testSet.txt"):
+        (root / name).write_text("\n".join(rows) + "\n")
+    return root
+
+
+def serve_from_disk(eng, cfg):
+    """predict_clips over an on-disk AVE tree in both wire formats, if
+    Pillow can write it; prints which decoder ran. A native build that
+    fails for want of libjpeg's header falls back to PIL, any other build
+    failure is fatal."""
+    import tempfile
+
+    from dg_sct_tpu_torch import native
+    from dg_sct_tpu_torch.data.ave import AVEDataset
+
+    try:
+        import PIL  # noqa: F401
+    except ImportError as e:
+        print(f"serve disk: not run: Pillow does not import ({e})", flush=True)
+        return
+    if native.available():
+        decoder = "native"
+    elif "jpeglib.h" in (native.build_error() or ""):
+        decoder = "pil"
+        print(f"serve disk: native core not built, jpeglib.h missing: "
+              f"{native.build_error().strip().splitlines()[0]}", flush=True)
+    else:
+        raise RuntimeError(f"native io core failed to build:\n{native.build_error()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ave_") as tmp:
+        root = write_ave_tree(Path(tmp), CLIPS, cfg)
+        for fmt, kw in (("u8+i16", {"raw_u8": True}),
+                        ("yuv420+mulaw", {"yuv420": True, "wave_mulaw": True})):
+            ds = AVEDataset(str(root), "test", img_size=cfg.swin.img_size,
+                            frame_dir=str(root / "frames"), audio_dir=str(root / "audio"),
+                            num_frames=cfg.num_frames,
+                            segment_samples=cfg.htsat.frontend.clip_samples, **kw)
+            t0 = time.perf_counter()
+            check_clips(f"disk {fmt} ({decoder} decoder)", eng, ds, 4)
+            print(f"serve disk {fmt}: decoder {decoder}, {len(ds)} clips of 320x320 JPEGs in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def run_serving(cfg):
+    """Phase 5: the census-built model in bf16 through predict_clips."""
+    from dg_sct_tpu_torch.serve import AVEInferenceEngine
+
+    params, state = import_census_model(cfg)
+    eng = AVEInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device="cuda")
+    del params, state
+    u8, yuv = Clips(CLIPS, cfg, seed=10), Clips(CLIPS, cfg, seed=10, yuv420=True)
+    ref = eng.predict(u8.wave, u8.frames)
+    ev, ie = check_clips("u8+i16", eng, u8, 4, ref)
+    ev2, ie2 = check_clips("u8+i16 again", eng, u8, 4, ref)
+    print(f"serve u8+i16: two runs max abs diff {np.abs(ev2 - ev).max():.3e} / "
+          f"{np.abs(ie2 - ie).max():.3e}", flush=True)
+    ev, ie = check_clips("yuv420+mulaw", eng, yuv, 4)
+    ev2, ie2 = check_clips("yuv420+mulaw again", eng, yuv, 4)
+    atol, rtol = TOL[torch.bfloat16]
+    if not (np.allclose(ev2, ev, atol=atol, rtol=rtol) and np.allclose(ie2, ie, atol=atol,
+                                                                       rtol=rtol)):
+        raise AssertionError("yuv420+mulaw: two predict_clips runs disagree")
+    print(f"serve yuv420+mulaw: two runs max abs diff {np.abs(ev2 - ev).max():.3e} / "
+          f"{np.abs(ie2 - ie).max():.3e}", flush=True)
+    eng.chunk = 3  # 7 clips: 4 batches in 2 chunks of 3, the last padded with 2 batches
+    check_clips("u8+i16 chunk 3", eng, u8, 6, ref)
+    eng.chunk = 2
+
+    serve_from_disk(eng, cfg)
+
+    u8, yuv = Clips(STREAM_CLIPS, cfg, seed=11), Clips(STREAM_CLIPS, cfg, seed=11, yuv420=True)
+    for ds, fmt in ((u8, "u8+i16"), (yuv, "yuv420+mulaw")):
+        print(f"stream: {fmt}: {ds.bytes_per_forward(BATCH) / 1e6:.3f} MB host to device a "
+              f"forward of {BATCH} clips", flush=True)
+    for rnd in (1, 2):
+        for name, fn in (("predict_clips u8+i16", lambda: eng.predict_clips(u8)),
+                         ("predict u8+i16", lambda: eng.predict(u8.wave, u8.frames)),
+                         ("predict_clips yuv420+mulaw", lambda: eng.predict_clips(yuv))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            dt = time.perf_counter() - t0
+            print(f"stream: run {rnd} {name}: {STREAM_CLIPS} clips in {dt:.3f} s = "
+                  f"{STREAM_CLIPS / dt:.3f} clips/s (B={BATCH}, chunk {eng.chunk}, bf16)",
+                  flush=True)
+    profile_chunk(eng, Clips(3 * BATCH * eng.chunk, cfg, seed=12))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", action="append", choices=sorted(SOURCES),
@@ -530,6 +809,7 @@ def main() -> int:
         print(f"partial run ({', '.join(args.only)}): no model, no ok line", flush=True)
         return 0
     counts = run_model(cfg)
+    run_serving(cfg)
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

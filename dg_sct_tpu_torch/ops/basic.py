@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import constant
+from . import dsp
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +199,45 @@ def _scaled(v):
     return np.asarray(v, np.float32) * np.float32(255.0)
 
 
+def _ycc_to_rgb():
+    """JFIF full-range YCbCr -> RGB as a (3, 3) matrix on (Y, Cb-128, Cr-128)
+    rows: R = Y + 1.402 Cr'; G = Y - .344136 Cb' - .714136 Cr'; B = Y + 1.772 Cb'."""
+    return np.asarray([[1.0, 1.0, 1.0],
+                       [0.0, -0.344136, 1.772],
+                       [1.402, -0.714136, 0.0]], np.float32)
+
+
+def normalize_frames_yuv420(y_u8, uv_u8, dtype=torch.bfloat16, mean=IMAGENET_MEAN,
+                            std=IMAGENET_STD):
+    """Planar 4:2:0 frames, y (..., S, S) and uv (..., S/2, S/2, 2) uint8
+    (`native.load_jpeg_batch_yuv420`), -> ImageNet-normalized (..., S, S, 3)
+    `dtype`: bicubic chroma upsample (`dsp.resize_2d`), then YCbCr -> RGB,
+    /255 and the ImageNet affine, in float32."""
+    *lead, S, _ = y_u8.shape
+    dev = y_u8.device
+    uv = uv_u8.to(torch.float32).reshape((-1,) + tuple(uv_u8.shape[-3:]))
+    uv = dsp.resize_2d(uv, S, S, kernel="cubic", align_corners=False)
+    ycc = torch.cat([y_u8.to(torch.float32)[..., None],
+                     uv.reshape(tuple(lead) + (S, S, 2)) - 128.0], dim=-1)
+    rgb = ycc @ constant(_ycc_to_rgb, device=dev)
+    m = constant(_scaled, mean, device=dev)
+    s = constant(_scaled, std, device=dev)
+    return ((rgb - m) / s).to(dtype)
+
+
 MULAW_MU = 255.0
+
+
+def encode_mulaw_u8(wave: np.ndarray) -> np.ndarray:
+    """Host-side continuous mu-law companding of a float waveform in [-1, 1]
+    (or int16 PCM) to uint8, the inverse of `dequantize_mulaw_u8`: half the
+    wire bytes of int16."""
+    x = wave.astype(np.float32)
+    if wave.dtype == np.int16:
+        x = x / 32767.0
+    x = np.clip(x, -1.0, 1.0)
+    y = np.sign(x) * np.log1p(MULAW_MU * np.abs(x)) / np.log1p(MULAW_MU)
+    return np.round((y + 1.0) * 127.5).astype(np.uint8)
 
 
 def dequantize_mulaw_u8(wave_u8, dtype=torch.float32):

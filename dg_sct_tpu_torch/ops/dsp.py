@@ -108,9 +108,26 @@ def bicubic_resize_matrix(n_in: int, n_out: int, align_corners: bool = True) -> 
     return resize_matrix(n_in, n_out, kernel="cubic", align_corners=align_corners)
 
 
+def _resize_basis(n_in: int, n_out: int, kernel: str, align_corners: bool) -> np.ndarray:
+    """`resize_matrix` with positional arguments only, as `device.constant`
+    takes them."""
+    return resize_matrix(n_in, n_out, kernel=kernel, align_corners=align_corners)
+
+
 # ---------------------------------------------------------------------------
 # forward ops
 # ---------------------------------------------------------------------------
+
+def resize_2d(x, out_h: int, out_w: int, *, kernel: str = "cubic", align_corners: bool = False):
+    """(N, H, W, C) -> (N, out_h, out_w, C): torch F.interpolate semantics as
+    two products with resize matrices, held on x's device in x's type."""
+    Mh = constant(_resize_basis, x.shape[1], out_h, kernel, align_corners, device=x.device,
+                  dtype=x.dtype)
+    Mw = constant(_resize_basis, x.shape[2], out_w, kernel, align_corners, device=x.device,
+                  dtype=x.dtype)
+    x = torch.einsum("oh,nhwc->nowc", Mh, x)
+    return torch.einsum("ow,nhwc->nhoc", Mw, x)
+
 
 def power_spectrogram(wave, cfg: AudioFrontendConfig, compute_dtype=None):
     """(N, L) -> (N, T, n_fft//2+1) float32 power spectrogram |STFT|^2.
