@@ -30,14 +30,27 @@ Phases, each fatal on failure:
      JPEGs on disk (prints the decoder, native or PIL); then `stream:` lines:
      clips/s of `predict_clips` over 32 clips per wire format beside
      `predict`, host-to-device bytes per forward, and the host-to-device
-     copies of a profiled run (time a forward, kind, overlap with kernels).
+     copies of a profiled run (time a forward, kind, overlap with kernels);
+  6. train the same widths (random weights from seed 0, nonzero adapter
+     gates) in bf16 over float32 Adam masters with remat "full": B=8 clips
+     (80 frames and 80 audio clips), accum 2, 4 mini-steps on seeded
+     synthetic batches with a mixup lambda and a generator, so SpecAugment,
+     drop_path and dropout are on; checks a finite loss at each, no change
+     after mini-step 1, every trainable leaf changed after mini-step 2 but
+     the unused ones, every frozen leaf bit-identical, the BN running state
+     of bn0 and the adapters moved, no kernel launched; prints each
+     mini-step's time and the peak memory (`train:` lines), a profiled
+     mini-step (`train profile:`), two mini-steps of B=8 with remat "none"
+     (their times and peak memory), the eval step on the trained weights
+     (launches K1/K2/K3 = 2/34/0), and the saved train state loaded into
+     the engine, which folds it and answers 2 clips (2/34/48).
 It then prints the kernels line (launches from phase 4), the card line and,
 last, the ok line.
 
     python3 chip_smoke.py --only adapter_bottleneck   # phases 1-3 for K3 alone
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 and 5; such a run prints no ok line.
+phases 4 to 6; such a run prints no ok line.
 """
 from __future__ import annotations
 
@@ -397,14 +410,24 @@ def kernel_group(name: str) -> str:
 def profile_forward(eng, wave, frames):
     """One engine forward under torch.profiler: device time by kernel group,
     the busiest kernels, and the share of the forward's span the card idles."""
+    profile_run(lambda: eng.forward_batch(wave, frames), f"one forward of {BATCH} clips",
+                "profile")
+
+
+def profile_run(fn, what, tag, host_ops=True):
+    """`fn()` under torch.profiler; prints `tag:` lines: device busy time and
+    the idle share of the span from the first kernel's start to the last
+    one's end, time by kernel group, the busiest kernels. `host_ops=False`
+    records device activity only (a train step's host ops number ~10^5)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.forward_batch(wave, frames)
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        print("profile: the profiler recorded no device time", flush=True)
+        print(f"{tag}: the profiler recorded no device time", flush=True)
         return
     by_group, by_name = {}, {}
     for e in dev:
@@ -423,13 +446,13 @@ def profile_forward(eng, wave, frames):
     span = max(t for _, t in spans) - spans[0][0]
     groups = ", ".join(f"{g} {us / 1e3:.3f} ms" for g, us in
                        sorted(by_group.items(), key=lambda kv: -kv[1]))
-    print(f"profile: one forward of {BATCH} clips: device busy {busy / 1e3:.3f} ms of a "
+    print(f"{tag}: {what}: device busy {busy / 1e3:.3f} ms of a "
           f"{span / 1e3:.3f} ms span ({100.0 * (1.0 - busy / span):.1f}% idle), "
           f"{len(dev)} device events; by group: {groups}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, us in top[:10] + [kv for kv in top[10:] if kernel_group(kv[0])[0] == "K"]:
         short = name.replace("dgsct::(anonymous namespace)::", "")
-        print(f"profile:   {us / 1e3:9.3f} ms  {kernel_group(name):5s} {short[:110]}", flush=True)
+        print(f"{tag}:   {us / 1e3:9.3f} ms  {kernel_group(name):5s} {short[:110]}", flush=True)
 
 
 def run_model(cfg):
@@ -771,6 +794,199 @@ def run_serving(cfg):
     profile_chunk(eng, Clips(3 * BATCH * eng.chunk, cfg, seed=12))
 
 
+# ---------------------------------------------------------------------------
+# phase 6: AVE training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 8      # TrainConfig.batch_size: 80 frames and 80 audio clips a mini-step
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 4
+EVAL_LAUNCHES = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 0}
+
+
+def unused_leaf(path) -> bool:
+    """Trainable weights the AVE forward never reads, kept for checkpoint
+    parity (`models/heads/ave.py`): CMBS's AVInter / VAInter and the
+    decoders' self-attention. Their gradient is zero, so Adam leaves them."""
+    return (path[0] == "CMBS" and path[1] in ("AVInter", "VAInter")) or (
+        path[0] == "temporal_attn" and path[1].endswith("_decoder") and "self_attn" in path)
+
+
+def train_batches(cfg, n, batch, seed, device):
+    """`n` seeded synthetic batches at the model's widths on `device`, each
+    with a mixup lambda a clip of audio (B*T)."""
+    from dg_sct_tpu_torch.data.ave import synthetic_batch
+
+    out = []
+    for i in range(n):
+        b = synthetic_batch(batch, img_size=cfg.swin.img_size, num_segments=cfg.num_frames,
+                            sr=cfg.htsat.frontend.clip_samples, seed=seed + i)
+        b["mixup_lambda"] = np.random.RandomState(seed + i).beta(
+            0.5, 0.5, size=(batch * cfg.num_frames,)).astype(np.float32)
+        out.append({k: torch.as_tensor(v, device=device) for k, v in b.items()})
+    return out
+
+
+def timed_step(step, args):
+    """One train step, synchronised -> (its outputs, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def remat_none_step(cfg, opt, tr, fr, state, opt_state, batch, device):
+    """Two mini-steps of TRAIN_BATCH clips with remat "none" from the same
+    inputs (the first grows the allocator's pool): ([seconds of each], peak
+    GiB). An out-of-memory error is fatal."""
+    from dg_sct_tpu_torch.train import ave_train
+
+    step = ave_train.make_train_step(cfg, opt, device=device, remat_policy="none")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        (_, _, _, m), dt = timed_step(step, (tr, fr, state, opt_state, batch,
+                                             torch.Generator(device=device).manual_seed(5)))
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError("train remat none: the loss is not finite")
+        times.append(dt)
+    return times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_training(cfg, device="cuda"):
+    """Phase 6: the full-width model in bf16 over float32 Adam masters, remat
+    "full", TRAIN_BATCH clips, accum TRAIN_ACCUM; TRAIN_STEPS mini-steps
+    with SpecAugment, drop_path, dropout and mixup on, the checks of each,
+    a profiled mini-step, two with remat "none", the eval step, and the
+    saved train state served by the engine."""
+    import dataclasses
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import TrainConfig
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.models.interleave import ADKEYS
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.serve import AVEInferenceEngine
+    from dg_sct_tpu_torch.train import ave_train
+    from dg_sct_tpu_torch.utils import checkpoint as ckpt
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+    from dg_sct_tpu_torch.weights import from_jax
+
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    params, state = ave.init_ave_model(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    for k in ADKEYS:  # nonzero gates, as phase 4
+        for ap in params["adapters"][k]:
+            for g in ("gate", "gate_av"):
+                ap[g] = torch.empty_like(ap[g]).uniform_(0.2, 0.6, generator=gen)
+    tr, fr = ave_train.partition_params(params)
+    p0 = {p: t.cpu() for p, t in tree_paths(params)}  # on the host: not in the peak
+    s0 = {p: t.cpu() for p, t in tree_paths(state)}
+    opt = ave_train.make_optimizer(tr, TrainConfig(batch_size=TRAIN_BATCH,
+                                                   accum_steps=TRAIN_ACCUM), steps_per_epoch=1)
+    opt_state = opt.init(tr)
+    step = ave_train.make_train_step(tcfg, opt, device=device, remat_policy="full")
+    batches = train_batches(cfg, TRAIN_STEPS, TRAIN_BATCH, seed=20, device=device)
+    gen.manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for i in range(TRAIN_STEPS):
+        (tr, state, opt_state, m), dt = timed_step(step, (tr, fr, state, opt_state, batches[i],
+                                                          gen))
+        times.append(dt)
+        loss = float(m["loss"])
+        print(f"train: mini-step {i + 1}: loss {loss:.4f}, acc {float(m['acc']):.2f}, "
+              f"{dt:.3f} s, applied updates {opt_state['gradient_step']}", flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train: mini-step {i + 1}: the loss is not finite")
+        if i > 1:
+            continue
+        now = dict(tree_paths(ave_train.merge_params(tr, fr)))
+        same = {p: torch.equal(now[p].cpu(), p0[p]) for p in p0}
+        if i == 0 and not all(same.values()):
+            changed = [p for p in same if not same[p]]
+            raise AssertionError(f"train: mini-step 1 changed {changed[:3]}")
+        if i == 1:
+            frozen = [p for p in same if p[0] in ("swin", "htsat")]
+            moved = [p for p in same if p[0] not in ("swin", "htsat") and not same[p]]
+            dead = [p for p in same if p[0] not in ("swin", "htsat") and unused_leaf(p)]
+            bad = ([p for p in frozen if not same[p]]
+                   + [p for p in same if p[0] not in ("swin", "htsat")
+                      and same[p] != unused_leaf(p)])
+            if bad:
+                raise AssertionError(f"train: after mini-step 2, leaves against the rule: "
+                                     f"{bad[:5]}")
+            print(f"train: after mini-step 2: {len(moved)} trainable leaves changed, "
+                  f"{len(dead)} unused ones and {len(frozen)} frozen ones bit-identical",
+                  flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"train: the train steps launched kernels {counts}")
+    bn = [(p, t) for p, t in tree_paths(state) if p[-1] in ("mean", "var")]
+    still = [p for p, t in bn if torch.equal(t.cpu(), s0[p])]
+    counts_bn = {int(t) for p, t in tree_paths(state) if p[-1] == "count"}
+    if still or counts_bn != {TRAIN_STEPS}:
+        raise AssertionError(f"train: BN state did not move: {still[:3]}, counts {counts_bn}")
+    print(f"train: {TRAIN_STEPS} mini-steps of B={TRAIN_BATCH} clips, accum {TRAIN_ACCUM}, "
+          f"bf16 over float32 masters, remat full: "
+          + ", ".join(f"{t:.3f}" for t in times) + f" s; peak memory {peak:.3f} GiB; "
+          f"{len(bn)} BN stats of bn0 and the adapters moved, counts {TRAIN_STEPS}; "
+          f"kernel launches {counts}; card {torch.cuda.get_device_name(0)}", flush=True)
+
+    profile_run(lambda: step(tr, fr, state, opt_state, batches[0], gen),
+                f"one mini-step of {TRAIN_BATCH} clips, remat full", "train profile",
+                host_ops=False)
+    dts, peak_none = remat_none_step(tcfg, opt, tr, fr, state, opt_state, batches[0], device)
+    print(f"train remat none: two mini-steps of B={TRAIN_BATCH} clips in "
+          + ", ".join(f"{t:.3f}" for t in dts) + f" s, peak memory {peak_none:.3f} GiB",
+          flush=True)
+
+    estep = ave_train.make_eval_step(tcfg, device=device)
+    reset_launch_counts()
+    em = estep(tr, fr, state, batches[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != EVAL_LAUNCHES or not all(bool(torch.isfinite(v).all())
+                                          for v in em["outputs"].values()):
+        raise AssertionError(f"train eval step: launches {counts} (expected {EVAL_LAUNCHES}) "
+                             f"or non-finite outputs")
+    print(f"train eval step: B={TRAIN_BATCH}, correct_frac {float(em['correct_frac']):.4f}, "
+          f"launches {counts}", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        path = str(Path(tmp) / "train_state.npz")
+        t0 = time.perf_counter()
+        ckpt.save_train_state(path, params=ave_train.merge_params(tr, fr), state=state,
+                              opt_state=opt_state, rng_state=gen.get_state(),
+                              step=opt_state["gradient_step"])
+        size = Path(path).stat().st_size
+        lp, ls = ckpt.load_params_and_state(path)
+        dt = time.perf_counter() - t0
+    eng = AVEInferenceEngine(cfg, *from_jax(lp, ls, cfg, device=device), batch_size=BATCH,
+                             device=device)
+    rs = np.random.RandomState(30)
+    T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.swin.img_size
+    wave = (np.clip(0.3 * rs.randn(BATCH, T, L), -1, 1) * 32767).astype(np.int16)
+    frames = rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8)
+    eng.predict(wave, frames)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = eng.predict(wave, frames)
+    counts = launch_counts()
+    if counts != PER_FORWARD or not all(np.isfinite(v).all() for v in out.values()):
+        raise AssertionError(f"train serve: launches {counts} (expected {PER_FORWARD}) or "
+                             f"non-finite scores")
+    print(f"train serve: train state of {size / 1e9:.3f} GB saved and read in {dt:.1f} s; "
+          f"the engine folds its params and state and answers {BATCH} clips, launches "
+          f"{counts}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", action="append", choices=sorted(SOURCES),
@@ -810,6 +1026,9 @@ def main() -> int:
         return 0
     counts = run_model(cfg)
     run_serving(cfg)
+    t0 = time.perf_counter()
+    run_training(cfg)
+    print(f"train: phase 6 in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

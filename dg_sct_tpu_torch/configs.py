@@ -1,4 +1,4 @@
-"""Immutable configuration dataclasses of the AVE model.
+"""Immutable configuration dataclasses of the AVE model and its training.
 
 A copy of the AVE part of `dg_sct_tpu/configs.py` with torch dtypes: the
 field names, defaults and the two static layout helpers are the same, so a
@@ -156,6 +156,23 @@ class AVEModelConfig:
     num_classes: int = 28
     d_model: int = 256
     compute_dtype: Any = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """AVE training recipe (`DG-SCT/AVE/main_trans.py` and `train.sh`): batch
+    8, gradients accumulated over 2 mini-steps, Adam at lr 5e-4, StepLR
+    decay_epoch / decay, early stop."""
+    batch_size: int = 8
+    accum_steps: int = 2
+    lr: float = 5e-4
+    lr_mlp: float = 5e-4
+    decay_epoch: int = 10
+    decay: float = 0.1
+    epochs: int = 50
+    early_stop: int = 10
+    seed: int = 43
+    mixup_alpha: float = 0.5
 
 
 def ave_paired_layout(swin: SwinV2Config, htsat: HTSATConfig):

@@ -1,4 +1,4 @@
-"""DG-SCT cross-modal prompt adapter (`VisualAdapter`), eval, AVE variant.
+"""DG-SCT cross-modal prompt adapter (`VisualAdapter`), AVE variant.
 
 Tokens stay in (B, N, C) layout and every 1x1 conv is a matmul. Stages:
   1. resample the other modality's tokens to (N, C): token map + channel map,
@@ -88,9 +88,11 @@ def _token_linear(p, x, *, with_bias=True):
     return y.transpose(-1, -2)
 
 
-def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True):
+def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=False):
     """x: (B, N, C) this tower's tokens; other: (B, M, D) prompting tokens.
-    Returns (residual (B, N, C), spatial maps (B, 1, N))."""
+    Returns (residual (B, N, C), spatial maps (B, 1, N), new state); in
+    training bn1 and bn2 normalize with the batch's statistics and the new
+    state holds their updated running stats."""
     if cfg.avs_variant:
         raise NotImplementedError("the AVS adapter variant is not ported yet "
                                   "(ROADMAP.md, queue 1: AVS family)")
@@ -133,17 +135,19 @@ def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True):
 
     # ---- stage 5: bottleneck --------------------------------------------------------
     folded = "bn1" not in params and "bn2" not in params and "gate" not in params
-    if kernels and folded and cfg.is_post_layernorm:
-        return fused_bottleneck(params, x, has_ln1=cfg.is_before_layernorm), sp_maps
+    if kernels and not train and folded and cfg.is_post_layernorm:
+        return fused_bottleneck(params, x, has_ln1=cfg.is_before_layernorm), sp_maps, state
     z = layer_norm(params["ln_before"], x) if cfg.is_before_layernorm else x
+    new_state = dict(state)
     h = grouped_linear(params["down"], z)
     if cfg.use_bn and "bn1" in params:
-        h = batch_norm(params["bn1"], state["bn1"], h, axis=-1)
+        h, new_state["bn1"] = batch_norm(params["bn1"], state["bn1"], h, train=train, axis=-1)
     out = grouped_linear(params["up"], torch.relu(h))
     if cfg.use_bn and "bn2" in params:
-        out = batch_norm(params["bn2"], state["bn2"], out, axis=-1)
+        out, new_state["bn2"] = batch_norm(params["bn2"], state["bn2"], out, train=train,
+                                           axis=-1)
     if cfg.is_post_layernorm:
         out = layer_norm(params["ln_post"], out)
     if cfg.use_gate and "gate" in params:
         out = params["gate"] * out
-    return out, sp_maps
+    return out, sp_maps, new_state

@@ -1,5 +1,6 @@
-"""AVE model, eval: (wave (B, T, L), frames (B, T, H, W, 3)) ->
-is_event_scores (B, T), event_scores (B, 28), av_gate (B, T), av_score (B, 28).
+"""AVE model: (wave (B, T, L), frames (B, T, H, W, 3)) -> is_event_scores
+(B, T), event_scores (B, 28), av_gate (B, T), av_score (B, 28); in training
+also the new BN state.
 
 Parameters and state are nested dicts and lists of tensors with the JAX
 package's tree and shapes (`dg_sct_tpu/models/ave.py`).
@@ -11,13 +12,11 @@ import torch
 from ..configs import AVEModelConfig
 from ..device import resolve_device
 from ..ops.basic import GELU_MODES, Init
+from ..utils.tree import tree_map
 from . import htsat as H
 from . import interleave as I
 from . import swinv2 as S
 from .heads import ave as heads
-
-TRAIN_TODO = ("training is not ported yet: see ROADMAP.md, queue 1, "
-              "'AVE training with backward versions of the kernels'")
 
 
 def init_ave_model(cfg: AVEModelConfig, *, seed: int = 0, device=None):
@@ -43,30 +42,56 @@ def init_ave_model(cfg: AVEModelConfig, *, seed: int = 0, device=None):
     return params, {"htsat": htsat_state, "adapters": adapter_state}
 
 
+def cast_for_compute(tree, dtype):
+    """The float leaves of `tree` as `dtype` copies (differentiable: the
+    gradients come back through the cast to the float32 masters); float32
+    or None leaves the tree as it is."""
+    if dtype in (None, torch.float32):
+        return tree
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
 def forward(params, state, wave, images, cfg: AVEModelConfig, *, train=False, kernels=True,
-            gelu="exact", device=None):
+            gelu="exact", device=None, gen=None, mixup_lambda=None, remat_policy="full"):
     """wave: (B, T, L); images: (B, T, H, W, 3) channels-last frames, both
     tensors or arrays, moved to `device` (None: the card), where `params`
     must lie. `kernels` runs K1-K3 where the JAX package's three Pallas
     flags would; `gelu` is "exact" or "tanh". Frames fold into the batch
-    axis as (b t)."""
-    if train:
-        raise NotImplementedError(TRAIN_TODO)
+    axis as (b t).
+
+    Eval returns the outputs. `train=True` returns (outputs, new state):
+    BN on the batch's statistics and no kernel, whatever `kernels` says (as
+    the JAX package trains through none); `gen`, a torch.Generator on
+    `device`, draws SpecAugment, drop_path and dropout (None: none of them);
+    `mixup_lambda` (B*T,) mixes the log-mel maps; `remat_policy` is the
+    interleave's checkpointing ("full", "dots" or "none"). With a
+    `cfg.compute_dtype` other than float32, the float params and the inputs
+    are cast to it here; gradients flow back through the cast."""
     if gelu not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu!r} not in {GELU_MODES}")
     device = resolve_device(device)
     wave = torch.as_tensor(wave, device=device)
     images = torch.as_tensor(images, device=device)
+    params = cast_for_compute(params, cfg.compute_dtype)
+    if cfg.compute_dtype != torch.float32:
+        wave = wave.to(cfg.compute_dtype)
     images = images.to(params["swin"]["patch_embed"]["kernel"].dtype)
+    if mixup_lambda is not None:
+        mixup_lambda = torch.as_tensor(mixup_lambda, device=device)
     B, T = wave.shape[0], wave.shape[1]
-    feats = I.forward(params, state, wave.reshape(B * T, -1),
-                      images.reshape((B * T,) + tuple(images.shape[2:])), cfg,
-                      kernels=kernels, gelu=gelu)
+    feats, new_state = I.forward(params, state, wave.reshape(B * T, -1),
+                                 images.reshape((B * T,) + tuple(images.shape[2:])), cfg,
+                                 kernels=kernels and not train, gelu=gelu, train=train,
+                                 gen=gen if train else None, mixup_lambda=mixup_lambda,
+                                 remat_policy=remat_policy)
     f_v = feats["f_v"].reshape(B, T, -1)
     f_a = feats["f_a"].reshape(B, T, -1)
-    video_q, audio_q, av_gate = heads.temporal_attention(params["temporal_attn"], f_v, f_a)
+    head_gen = gen if train else None
+    video_q, audio_q, av_gate = heads.temporal_attention(params["temporal_attn"], f_v, f_a,
+                                                         train=train, gen=head_gen)
     is_event_scores, event_scores, av_score = heads.cmbs(params["CMBS"], video_q, audio_q)
-    return {"is_event_scores": is_event_scores[..., 0].transpose(0, 1),
-            "event_scores": event_scores,
-            "av_gate": av_gate[..., 0].transpose(0, 1),
-            "av_score": av_score}
+    out = {"is_event_scores": is_event_scores[..., 0].transpose(0, 1),
+           "event_scores": event_scores,
+           "av_gate": av_gate[..., 0].transpose(0, 1),
+           "av_score": av_score}
+    return (out, new_state) if train else out

@@ -1,4 +1,4 @@
-"""AVE task head, eval: TemporalAttention (BiLSTMs, a small cross-modal
+"""AVE task head: TemporalAttention (BiLSTMs, a small cross-modal
 transformer encoder/decoder, sigmoid gates) and CMBS (top-k class activation
 scores and the localize module). Sequences are time-major (T, B, E).
 """
@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ...ops.basic import Init, layer_norm, layer_norm_init, linear, linear_init
+from ...ops.basic import Init, dropout, layer_norm, layer_norm_init, linear, linear_init
 from ...ops.mha import mha, mha_init
 from ...ops.rnn import bilstm, bilstm_init
 
@@ -14,6 +14,8 @@ D_MODEL = 256
 V_FC_DIM = 512
 A_FC_DIM = 128
 FFN = 1024
+P_DROP = 0.1   # dropout of the encoder and decoder layers and their attention
+V_DROP = 0.2   # dropout after v_fc
 
 
 def init_encoder_layer(init: Init, d_model, ffn):
@@ -34,20 +36,29 @@ def init_decoder_layer(init: Init, d_model, ffn):
             "norm2": layer_norm_init(init, d_model)}
 
 
-def encoder_layer(params, src, *, nhead):
-    src = layer_norm(params["norm1"], src + mha(params["self_attn"], src, src, src,
-                                                num_heads=nhead))
-    h = torch.relu(linear(params["linear1"], src))
-    return layer_norm(params["norm2"], src + linear(params["linear2"], h))
+def _dropper(gen, train, rate):
+    """Dropout at `rate` from `gen` in training; the identity without `gen`."""
+    return lambda t: t if gen is None else dropout(gen, t, rate, train)
 
 
-def decoder_layer(params, tgt, memory, *, nhead):
+def encoder_layer(params, src, *, nhead, train=False, gen=None, p_drop=P_DROP):
+    drop = _dropper(gen, train, p_drop)
+    s2 = mha(params["self_attn"], src, src, src, num_heads=nhead, gen=gen,
+             dropout_rate=p_drop, train=train)
+    src = layer_norm(params["norm1"], src + drop(s2))
+    h = drop(torch.relu(linear(params["linear1"], src)))
+    return layer_norm(params["norm2"], src + drop(linear(params["linear2"], h)))
+
+
+def decoder_layer(params, tgt, memory, *, nhead, train=False, gen=None, p_drop=P_DROP):
     """memory = cat([memory, tgt]); cross-attention only."""
+    drop = _dropper(gen, train, p_drop)
     mem = torch.cat([memory, tgt], dim=0)
-    tgt = layer_norm(params["norm1"], tgt + mha(params["multihead_attn"], tgt, mem, mem,
-                                                num_heads=nhead))
-    h = torch.relu(linear(params["linear1"], tgt))
-    return layer_norm(params["norm2"], tgt + linear(params["linear2"], h))
+    t2 = mha(params["multihead_attn"], tgt, mem, mem, num_heads=nhead, gen=gen,
+             dropout_rate=p_drop, train=train)
+    tgt = layer_norm(params["norm1"], tgt + drop(t2))
+    h = drop(torch.relu(linear(params["linear1"], tgt)))
+    return layer_norm(params["norm2"], tgt + drop(linear(params["linear2"], h)))
 
 
 def init_temporal_attention(init: Init, v_dim=1536, a_dim=768):
@@ -68,24 +79,25 @@ def init_temporal_attention(init: Init, v_dim=1536, a_dim=768):
     }
 
 
-def temporal_attention(params, f_v, f_a, *, gamma=0.1):
+def temporal_attention(params, f_v, f_a, *, gamma=0.1, train=False, gen=None):
     """f_v: (B, T, 1536), f_a: (B, T, 768) -> time-major (video_out,
-    audio_out, av_gate): (T, B, 256) x2, (T, B, 1)."""
+    audio_out, av_gate): (T, B, 256) x2, (T, B, 1). Training with `gen`:
+    dropout 0.2 after v_fc and P_DROP in the encoder and decoder layers."""
     a = linear(params["a_fc"], f_a)
-    v = torch.relu(linear(params["v_fc"], f_v))
+    v = _dropper(gen, train, V_DROP)(torch.relu(linear(params["v_fc"], f_v)))
     a_seq = bilstm(params["audio_rnn"], a).transpose(0, 1)
     v_seq = bilstm(params["visual_rnn"], v).transpose(0, 1)
 
     def run_encoder(p, x):
         x = linear(p["affine"], x)
         for lp in p["layers"]:
-            x = encoder_layer(lp, x, nhead=4)
+            x = encoder_layer(lp, x, nhead=4, train=train, gen=gen)
         return x
 
     def run_decoder(p, tgt, memory):
         tgt = linear(p["affine"], tgt)
         for lp in p["layers"]:
-            tgt = decoder_layer(lp, tgt, memory, nhead=4)
+            tgt = decoder_layer(lp, tgt, memory, nhead=4, train=train, gen=gen)
         return tgt
 
     video_kv = run_encoder(params["video_encoder"], v_seq)

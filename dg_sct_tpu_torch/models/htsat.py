@@ -1,16 +1,17 @@
-"""HTS-AT audio Swin tower (frozen backbone), eval.
+"""HTS-AT audio Swin tower (frozen backbone).
 
-The frontend (STFT, log-mel, bn0, mel image, patch embed), pre-norm V1 Swin
-blocks with a relative-position-bias table, and V1 patch merging (norm, then
-reduction), driven block by block by the interleave.
+The frontend (STFT, log-mel, bn0, [training: SpecAugment, mixup], mel
+image, patch embed), pre-norm V1 Swin blocks with a relative-position-bias
+table, and V1 patch merging (norm, then reduction), driven block by block
+by the interleave.
 """
 from __future__ import annotations
 
 from ..configs import HTSATConfig
 from ..ops import dsp
-from ..ops.basic import (Init, batch_norm, batch_norm_init, layer_norm, layer_norm_init,
-                         linear, linear_init, merge_2x2, mlp, mlp_init, patch_embed,
-                         patch_embed_init)
+from ..ops.basic import (Init, batch_norm, batch_norm_init, drop_path_rates, drop_residual,
+                         layer_norm, layer_norm_init, linear, linear_init, merge_2x2, mlp,
+                         mlp_init, patch_embed, patch_embed_init)
 from ..ops.windows import (attention_v1_init, fused_block_eligible, fused_half_block,
                            shifted_window_attention, window_attention_v1)
 
@@ -53,11 +54,19 @@ def init_htsat(init: Init, cfg: HTSATConfig):
     return params, {"bn0": bn0_state}
 
 
-def mel_features(params, state, wave, cfg: HTSATConfig):
-    """wave (N, L) -> (N, T, mel) after bn0 (eval)."""
+def mel_features(params, state, wave, cfg: HTSATConfig, *, train=False, gen=None,
+                 mixup_lambda=None):
+    """wave (N, L) -> ((N, T, mel) after bn0, new state). Training: bn0 on
+    the batch's statistics, then SpecAugment (when `gen` is given), then
+    mixup (when `mixup_lambda` (N,) is given)."""
     fcfg = cfg.frontend
     x = dsp.logmel(dsp.power_spectrogram(wave, fcfg, fcfg.stft_compute), fcfg)
-    return batch_norm(params["bn0"], state["bn0"], x, axis=-1)
+    x, bn0_state = batch_norm(params["bn0"], state["bn0"], x, train=train, axis=-1)
+    if train and gen is not None:
+        x = dsp.spec_augment(gen, x, fcfg)
+    if train and mixup_lambda is not None:
+        x = dsp.do_mixup(x, mixup_lambda)
+    return x, {"bn0": bn0_state}
 
 
 def tokens_from_mel(params, x, cfg: HTSATConfig):
@@ -67,13 +76,17 @@ def tokens_from_mel(params, x, cfg: HTSATConfig):
     return patch_embed(params["patch_embed"], img, cfg.patch_size)
 
 
-def frontend(params, state, wave, cfg: HTSATConfig):
-    """wave (N, L) -> patch tokens (N, (spec/4)^2, E), eval."""
-    return tokens_from_mel(params, mel_features(params, state, wave, cfg), cfg)
+def frontend(params, state, wave, cfg: HTSATConfig, *, train=False, gen=None,
+             mixup_lambda=None):
+    """wave (N, L) -> (patch tokens (N, (spec/4)^2, E), new state)."""
+    x, new_state = mel_features(params, state, wave, cfg, train=train, gen=gen,
+                                mixup_lambda=mixup_lambda)
+    return tokens_from_mel(params, x, cfg), new_state
 
 
-def block(params, x, *, dim, heads, res, ws, shift, kernels=True, gelu="exact"):
-    """Pre-norm V1 Swin block. x: (N, L, C)."""
+def block(params, x, *, dim, heads, res, ws, shift, kernels=True, gelu="exact", drop=None):
+    """Pre-norm V1 Swin block. x: (N, L, C). `drop` (mask1, mask2, rate):
+    drop_path on the attention and MLP residuals (training)."""
     if fused_block_eligible(dim, heads, False, kernels):
         x = fused_half_block(params, x, kind="v1", heads=heads, res=res, ws=ws, shift=shift)
         return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu)
@@ -82,8 +95,8 @@ def block(params, x, *, dim, heads, res, ws, shift, kernels=True, gelu="exact"):
         lambda w, m, nw: window_attention_v1(params["attn"], w, num_heads=heads, ws=ws,
                                              mask=m, nW=nw, kernels=kernels),
         layer_norm(params["norm1"], x), H=H, W=W, ws=ws, shift=shift)
-    x = x + attn_out
-    return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu)
+    x = x + drop_residual(attn_out, drop, 0)
+    return x + drop_residual(mlp(params["mlp"], layer_norm(params["norm2"], x), gelu), drop, 1)
 
 
 def patch_merging(params, x, res):
@@ -92,13 +105,17 @@ def patch_merging(params, x, res):
 
 
 def block_plan(cfg: HTSATConfig):
-    """Static per-stage block metadata: dim, heads, res, ws, shift."""
+    """Static per-stage block metadata: dim, heads, res, ws, shift and the
+    drop-path rate dpr, linearly spaced to cfg.drop_path_rate."""
+    dprs = drop_path_rates(cfg.depths, cfg.drop_path_rate)
     plan = []
     for s in range(cfg.num_layers):
         res = cfg.stage_resolution(s)
         ws = min(cfg.window_size, min(res))
+        first = sum(cfg.depths[:s])
         plan.append([dict(dim=cfg.stage_dim(s), heads=cfg.num_heads[s], res=res, ws=ws,
-                          shift=0 if min(res) <= cfg.window_size or d % 2 == 0 else ws // 2)
+                          shift=0 if min(res) <= cfg.window_size or d % 2 == 0 else ws // 2,
+                          dpr=dprs[first + d])
                      for d in range(cfg.depths[s])])
     return plan
 

@@ -1,4 +1,4 @@
-"""Swin-V2-Large visual tower (frozen backbone), eval.
+"""Swin-V2-Large visual tower (frozen backbone).
 
 timm 0.6.12 `swinv2_large_window12_192_22k` semantics: post-norm residuals,
 scaled-cosine window attention with a clamped logit scale, the log-CPB bias,
@@ -7,8 +7,8 @@ and V2 patch merging (reduction, then norm).
 from __future__ import annotations
 
 from ..configs import SwinV2Config
-from ..ops.basic import (Init, layer_norm, layer_norm_init, linear, merge_2x2, mlp,
-                         mlp_init, patch_embed, patch_embed_init)
+from ..ops.basic import (Init, drop_path_rates, drop_residual, layer_norm, layer_norm_init,
+                         linear, merge_2x2, mlp, mlp_init, patch_embed, patch_embed_init)
 from ..ops.windows import (attention_v2_init, fused_block_eligible, fused_half_block,
                            shifted_window_attention, window_attention_v2)
 
@@ -38,14 +38,17 @@ def init_swinv2(init: Init, cfg: SwinV2Config):
 
 
 def block_plan(cfg: SwinV2Config):
-    """Static per-block metadata (timm's constructor): dim, heads, res, ws, shift."""
+    """Static per-block metadata (timm's constructor): dim, heads, res, ws,
+    shift and the drop-path rate dpr, linearly spaced to cfg.drop_path_rate."""
+    dprs = drop_path_rates(cfg.depths, cfg.drop_path_rate)
     plan = []
     for s in range(cfg.num_layers):
         res = cfg.stage_resolution(s)
         ws = min(cfg.window_size, min(res))
+        first = sum(cfg.depths[:s])
         plan.append([dict(dim=cfg.stage_dim(s), heads=cfg.num_heads[s], res=res, ws=ws,
                           shift=0 if min(res) <= cfg.window_size or d % 2 == 0 else ws // 2,
-                          pretrained_ws=cfg.pretrained_window_sizes[s])
+                          pretrained_ws=cfg.pretrained_window_sizes[s], dpr=dprs[first + d])
                      for d in range(cfg.depths[s])])
     return plan
 
@@ -62,19 +65,22 @@ def attn_part(params, x, meta, *, kernels=True):
         x, H=H, W=W, ws=meta["ws"], shift=meta["shift"])
 
 
-def attn_half(params, x, meta, *, kernels=True):
-    """x + norm1(attn(x)): K2 where it applies, else the plain composition."""
-    if fused_block_eligible(meta["dim"], meta["heads"], False, kernels):
+def attn_half(params, x, meta, *, kernels=True, drop=None):
+    """x + norm1(attn(x)): K2 where it applies, else the plain composition,
+    whose residual goes through drop_path with `drop` (mask1, mask2, rate)."""
+    if drop is None and fused_block_eligible(meta["dim"], meta["heads"], False, kernels):
         return fused_half_block(params, x, kind="v2", heads=meta["heads"], res=meta["res"],
                                 ws=meta["ws"], shift=meta["shift"],
                                 pretrained_ws=meta["pretrained_ws"])
-    return x + layer_norm(params["norm1"], attn_part(params, x, meta, kernels=kernels))
+    return x + drop_residual(layer_norm(params["norm1"], attn_part(params, x, meta,
+                                                                   kernels=kernels)), drop, 0)
 
 
-def block(params, x, meta, *, kernels=True, gelu="exact"):
-    """Post-norm V2 block: x += norm1(attn(x)); x += norm2(mlp(x))."""
-    x = attn_half(params, x, meta, kernels=kernels)
-    return x + layer_norm(params["norm2"], mlp(params["mlp"], x, gelu))
+def block(params, x, meta, *, kernels=True, gelu="exact", drop=None):
+    """Post-norm V2 block: x += norm1(attn(x)); x += norm2(mlp(x)). `drop`
+    (mask1, mask2, rate): drop_path on the two residuals (training)."""
+    x = attn_half(params, x, meta, kernels=kernels, drop=drop)
+    return x + drop_residual(layer_norm(params["norm2"], mlp(params["mlp"], x, gelu)), drop, 1)
 
 
 def patch_merging(params, x, res):

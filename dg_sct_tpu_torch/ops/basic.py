@@ -134,14 +134,31 @@ def mlp(params, x, gelu_mode: str = "exact"):
     return linear(params["fc2"], gelu(linear(params["fc1"], x), gelu_mode))
 
 
-def batch_norm(params, state, x, *, axis=-1, eps=1e-5):
-    """Eval BatchNorm over every axis but `axis`, from the running stats."""
+def batch_norm(params, state, x, *, train=False, axis=-1, momentum=0.1, eps=1e-5):
+    """BatchNorm over every axis but `axis` -> (y, new_state). Eval
+    normalizes with the running stats and returns `state`. Train normalizes
+    with the batch's biased variance and returns new running stats (the
+    unbiased variance, momentum `momentum`, `count` + 1) as new tensors
+    without a graph: nothing is written in place, so a recompute under
+    checkpointing cannot apply an update twice. y keeps x's type (float32
+    running stats do not promote a bfloat16 stream)."""
     ax = axis % x.ndim
     shape = [1] * x.ndim
     shape[ax] = x.shape[ax]
-    mu, var = state["mean"].reshape(shape), state["var"].reshape(shape)
-    xn = (x - mu) * torch.rsqrt(var + eps)
-    return xn * params["scale"].reshape(shape) + params["bias"].reshape(shape)
+    if train:
+        dims = tuple(i for i in range(x.ndim) if i != ax)
+        var, mu = torch.var_mean(x, dim=dims, correction=0)
+        n = x.numel() // x.shape[ax]
+        with torch.no_grad():
+            new_state = {
+                "mean": (1 - momentum) * state["mean"] + momentum * mu,
+                "var": (1 - momentum) * state["var"] + momentum * (var * (n / max(n - 1, 1))),
+                "count": state["count"] + 1}
+    else:
+        mu, var, new_state = state["mean"], state["var"], state
+    xn = (x - mu.reshape(shape)) * torch.rsqrt(var.reshape(shape) + eps)
+    y = xn * params["scale"].reshape(shape) + params["bias"].reshape(shape)
+    return y.to(x.dtype), new_state
 
 
 def grouped_linear(params, x):
@@ -178,6 +195,61 @@ def merge_2x2(x, res):
     x = torch.cat([x[:, :, 0, :, 0], x[:, :, 1, :, 0], x[:, :, 0, :, 1], x[:, :, 1, :, 1]],
                   dim=-1)
     return x.reshape(B, (H // 2) * (W // 2), 4 * C)
+
+
+# ---------------------------------------------------------------------------
+# stochastic ops: each draw from an explicit generator is split from its
+# apply, so a caller can draw masks outside a checkpointed region (a
+# recompute never redraws) and a test can apply the JAX package's masks
+# ---------------------------------------------------------------------------
+
+def keep_mask(gen, shape, rate, device):
+    """Bernoulli(1 - rate) keep mask of `shape` drawn from `gen`."""
+    return torch.rand(shape, generator=gen, device=device) < (1.0 - rate)
+
+
+def apply_keep_mask(x, mask, rate):
+    """Kept entries scaled by 1 / (1 - rate), the others zero; `mask`
+    broadcasts against x."""
+    return torch.where(mask, x / (1.0 - rate), 0.0)
+
+
+def dropout(gen, x, rate, train):
+    """Elementwise dropout; the identity unless training with a nonzero rate."""
+    if not train or rate == 0.0:
+        return x
+    return apply_keep_mask(x, keep_mask(gen, x.shape, rate, x.device), rate)
+
+
+def drop_path_rates(depths, rate):
+    """Per-block stochastic-depth rates of a tower, linearly spaced from 0 to
+    `rate` over all its blocks."""
+    total = sum(depths)
+    return [rate * i / max(total - 1, 1) for i in range(total)]
+
+
+def drop_path_mask(gen, n, rate, device):
+    """Stochastic depth's per-example keep mask, (n,)."""
+    return keep_mask(gen, (n,), rate, device)
+
+
+def apply_drop_path(x, mask, rate):
+    """Whole rows of x (leading axis) kept by the (n,) `mask`, or zeroed."""
+    return apply_keep_mask(x, mask.reshape((-1,) + (1,) * (x.ndim - 1)), rate)
+
+
+def drop_residual(y, drop, i):
+    """A block's residual y through stochastic depth with mask `drop[i]` of
+    its `drop` = (mask1, mask2, rate); y itself when `drop` is None."""
+    return y if drop is None else apply_drop_path(y, drop[i], drop[2])
+
+
+def drop_path(gen, x, rate, train):
+    """Stochastic depth on the leading (batch) axis; the identity unless
+    training with a nonzero rate."""
+    if not train or rate == 0.0:
+        return x
+    return apply_drop_path(x, drop_path_mask(gen, x.shape[0], rate, x.device), rate)
 
 
 # ---------------------------------------------------------------------------

@@ -165,6 +165,43 @@ def logmel(power, cfg: AudioFrontendConfig):
     return 10.0 * torch.log10(torch.clamp(power @ bank, min=cfg.amin))
 
 
+def _stripes(gen, n, total, width, num, device):
+    """(n, total) keep mask with `num` zero stripes a row: width w uniform in
+    [0, width), start floor(u * (total - w)) with u uniform in [0, 1)."""
+    w = torch.randint(0, width, (n, num), generator=gen, device=device)
+    u = torch.rand((n, num), generator=gen, device=device)
+    bgn = (u * (total - w)).to(torch.int64)
+    pos = torch.arange(total, device=device)[None, None]
+    hit = (pos >= bgn[..., None]) & (pos < (bgn + w)[..., None])
+    return ~hit.any(dim=1)
+
+
+def spec_augment_masks(gen, n, T, Fm, cfg: AudioFrontendConfig, device):
+    """SpecAugment's keep masks for n log-mel maps of (T, Fm): time (n, T)
+    then frequency (n, Fm), drawn from `gen` in that order."""
+    tmask = _stripes(gen, n, T, cfg.time_drop_width, cfg.time_stripes_num, device)
+    fmask = _stripes(gen, n, Fm, cfg.freq_drop_width, cfg.freq_stripes_num, device)
+    return tmask, fmask
+
+
+def apply_spec_masks(x, tmask, fmask):
+    """x (N, T, F) with the time and frequency stripes zeroed."""
+    return x * tmask[:, :, None].to(x.dtype) * fmask[:, None, :].to(x.dtype)
+
+
+def spec_augment(gen, x, cfg: AudioFrontendConfig):
+    """torchlibrosa SpecAugmentation as the JAX package draws it: per
+    example, random time and frequency stripes zeroed. x: (N, T, F)."""
+    N, T, Fm = x.shape
+    return apply_spec_masks(x, *spec_augment_masks(gen, N, T, Fm, cfg, x.device))
+
+
+def do_mixup(x, lam):
+    """Mixup of x (N, ...) against the batch-flipped x with (N,) weights."""
+    lam = lam.reshape((x.shape[0],) + (1,) * (x.ndim - 1)).to(x.dtype)
+    return x * lam + torch.flip(x, dims=(0,)) * (1.0 - lam)
+
+
 def reshape_wav2img(x, cfg: AudioFrontendConfig):
     """(N, T, mel) -> (N, spec, spec, 1) mel image: bicubic-resize T to
     spec*freq_ratio, then fold `freq_ratio` time strips along the rows."""

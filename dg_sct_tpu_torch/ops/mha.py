@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from .basic import Init, linear, linear_init
+from .basic import Init, dropout, linear, linear_init
 
 
 def mha_init(init: Init, embed_dim):
@@ -16,8 +16,9 @@ def mha_init(init: Init, embed_dim):
             "out_proj": linear_init(init, embed_dim, embed_dim)}
 
 
-def mha(params, query, key, value, *, num_heads):
-    """query/key/value: (Tq/Tk/Tk, B, E) time-major. Returns (Tq, B, E)."""
+def mha(params, query, key, value, *, num_heads, gen=None, dropout_rate=0.0, train=False):
+    """query/key/value: (Tq/Tk/Tk, B, E) time-major. Returns (Tq, B, E).
+    Training with `gen`: dropout on the attention weights."""
     Tq, B, E = query.shape
     Tk = key.shape[0]
     hd = E // num_heads
@@ -28,5 +29,7 @@ def mha(params, query, key, value, *, num_heads):
     v = (value @ wv + bv).transpose(0, 1).reshape(B, Tk, num_heads, hd)
     attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
     attn = torch.softmax(attn.float(), dim=-1).to(query.dtype)
+    if gen is not None:
+        attn = dropout(gen, attn, dropout_rate, train)
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Tq, E)
     return linear(params["out_proj"], out).transpose(0, 1)

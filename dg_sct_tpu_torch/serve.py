@@ -34,16 +34,9 @@ from .models import ave
 from .models.interleave import fold_adapters_eval
 from .ops.basic import (GELU_MODES, dequantize_mulaw_u8, normalize_frames_u8,
                         normalize_frames_yuv420)
+from .utils.tree import tree_map
 
 OUTPUTS = ("event_scores", "is_event_scores")
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def segment_preds(ev, ie):
@@ -79,8 +72,8 @@ class AVEInferenceEngine:
         if fold_eval:
             params, state = fold_adapters_eval(params, state, cfg)
         cast = lambda t: t.to(self.device, compute_dtype if t.is_floating_point() else t.dtype)
-        self.params = _tree_map(cast, params)
-        self.state = _tree_map(cast, state)
+        self.params = tree_map(cast, params)
+        self.state = tree_map(cast, state)
         self.cfg = cfg
         self.B = batch_size
         self.chunk = chunk

@@ -1,16 +1,25 @@
-"""Parameter bundles as one `.npz` of path-flattened arrays ("a/b/0/c"
-keys), the format of `dg_sct_tpu/utils/checkpoint.py`: a bundle written by
-either package reads in the other. Trees are nested dicts and lists of numpy
-arrays or tensors; tensors are copied to the host on save. Train-state
-bundles are read for their params and state only.
+"""Parameter and train-state bundles as one `.npz` of path-flattened arrays
+("a/b/0/c" keys), the format of `dg_sct_tpu/utils/checkpoint.py`: the
+params and state of a bundle written by either package read in the other.
+Trees are nested dicts and lists of numpy arrays, tensors or Python
+numbers; tensors are copied to the host on save.
+
+A train-state bundle ({"bundle": {"params", "state", "opt_state",
+"rng_state", "step"}}) keeps the JAX layout for params and state; the
+optimizer state (`train.optim.AccumulatedAdam`) and the torch.Generator
+state are the port's own. Saving and loading it on one device resumes
+training bit for bit.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from .tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _flatten(tree, prefix=""):
@@ -74,3 +83,37 @@ def load_params_and_state(path: str):
     if "params" in tree:
         return tree["params"], tree.get("state")
     return tree, None
+
+
+def save_train_state(path: str, *, params, state, opt_state, rng_state, step: int,
+                     metadata: dict | None = None) -> None:
+    """`rng_state`: the train generator's `get_state()`. `metadata`, if any,
+    goes to `path + ".meta.json"`."""
+    save_params(path, {"bundle": {"params": params, "state": state, "opt_state": opt_state,
+                                  "rng_state": rng_state, "step": np.asarray(step)}})
+    if metadata:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(metadata, f)
+
+
+def load_train_state(path: str, opt_state_template=None):
+    """-> (params, state, opt_state, rng_state (uint8 CPU tensor), step), the
+    trees as numpy arrays; with `opt_state_template` (the optimizer's
+    `init`), opt_state on its structure, devices and types."""
+    tree = load_params(path)["bundle"]
+    opt_state = tree["opt_state"]
+    if opt_state_template is not None:
+        opt_state = restore_structure(opt_state_template, opt_state)
+    return (tree["params"], tree["state"], opt_state, torch.from_numpy(tree["rng_state"]),
+            int(tree["step"]))
+
+
+def restore_structure(template, loaded):
+    """`loaded`'s leaves hung on `template`'s structure by position (dict
+    keys sorted), each a tensor on the template leaf's device and type, or
+    a Python number where the template has one."""
+    def like(ref, val):
+        if isinstance(ref, torch.Tensor):
+            return torch.as_tensor(np.array(val), device=ref.device).to(ref.dtype)
+        return type(ref)(np.asarray(val).item()) if isinstance(ref, (int, float)) else val
+    return tree_map(like, template, tree_unflatten(template, tree_leaves(loaded)))

@@ -49,8 +49,8 @@ def _adapter(geom, seed):
 def test_adapter_unfolded(geom):
     p, s, x, other = _adapter(geom, seed=1)
     ref, ref_maps, _ = JA.adapter(p, s, jnp.asarray(x), jnp.asarray(other), JAdapterConfig())
-    got, maps = PA.adapter(to_torch(p), to_torch(s), torch.from_numpy(x),
-                           torch.from_numpy(other), PAdapterConfig())
+    got, maps, _ = PA.adapter(to_torch(p), to_torch(s), torch.from_numpy(x),
+                              torch.from_numpy(other), PAdapterConfig())
     close(got, ref)
     close(maps, ref_maps)
 
@@ -83,8 +83,8 @@ def test_adapter_folded(geom, kernels):
     finally:
         JA.set_fused_bottleneck(False)
     pfp, pfs = PA.fold_eval(to_torch(p), to_torch(s), PAdapterConfig())
-    got, maps = PA.adapter(pfp, pfs, torch.from_numpy(x), torch.from_numpy(other),
-                           PAdapterConfig(), kernels=kernels)
+    got, maps, _ = PA.adapter(pfp, pfs, torch.from_numpy(x), torch.from_numpy(other),
+                              PAdapterConfig(), kernels=kernels)
     close(got, ref)
     close(got, unfolded)
     close(maps, ref_maps)

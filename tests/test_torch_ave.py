@@ -161,11 +161,28 @@ def test_entry_points_need_the_card_unless_asked(tiny, monkeypatch):
     assert p2["swin"]["norm"]["scale"].device.type == "cpu"
 
 
-def test_train_is_not_ported(tiny):
+def test_train_is_not_ported(tiny, monkeypatch):
+    """No kernel is ported for training, as the JAX package trains through
+    none: train=True never reaches a kernel wrapper, whatever `kernels`
+    says, and returns (outputs, new state)."""
+    from dg_sct_tpu_torch.models import adapter as PAd
+    from dg_sct_tpu_torch.ops import windows as PW
+
     jcfg, pcfg, jp, js, wave, imgs = tiny
     pp, ps = from_jax(jp, js, pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PA.forward(pp, ps, wave, imgs, pcfg, train=True, device="cpu")
+    ref, ref_state = PA.forward(pp, ps, wave, imgs, pcfg, train=True, kernels=False,
+                                device="cpu")
+
+    def no_kernel(*args, **kw):
+        raise AssertionError("a kernel wrapper was called in training")
+
+    for mod, name in ((PW, "window_attention"), (PW, "fused_attn_half_block"),
+                      (PAd, "fused_bottleneck")):
+        monkeypatch.setattr(mod, name, no_kernel)
+    got, state = PA.forward(pp, ps, wave, imgs, pcfg, train=True, kernels=True, device="cpu")
+    close_outputs({k: v.detach() for k, v in got.items()},
+                  {k: v.detach() for k, v in ref.items()})
+    assert int(state["htsat"]["bn0"]["count"]) == 1
 
 
 def _imports(path):
