@@ -5,15 +5,20 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); TF32 off for matmul and cuDNN;
-  2. build the three CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the four CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version at every shape of the
      main path, in float32 and bfloat16, and time kernel, plain version and
      the yardsticks the port never calls: for K1 `scaled_dot_product_attention`
      (library_ms), for K2 and K3 a composition of library calls (composed_ms);
-     for K2 in bf16 also the device time of each of its kernels (stages_ms).
-     Times as the host issues the calls (ms) and, for kernel and yardsticks,
-     the card's time alone (device_ms). K3 also at shapes off the main path:
-     ragged row tiles, no LN_before, four groups of 24 or 48 channels;
+     for K2 in bf16 also the device time of each of its kernels (stages_ms);
+     for K4 (the int8 linear, at the 56 (rows, K, N) of one B=2 int8 forward,
+     static scales, and dynamic ones checked too) the quantize / `torch._int_mm`
+     / dequantize composition (composed_ms) and a bf16 addmm of the same shape
+     (matmul_ms). Times as the host issues the calls (ms) and, for kernel and
+     yardsticks, the card's time alone (device_ms). The float32 checks of K1
+     and K2 run after a launch that leaves NaN in shared memory. K3 also at
+     shapes off the main path: ragged row tiles, no LN_before, four groups of
+     24 or 48 channels;
   4. drive the full-width AVE eval forward (AVEModelConfig(), random weights
      from seed 0, nonzero adapter gates) through AVEInferenceEngine: B=2 clips
      in bf16, 3 predict requests; check outputs, launch counts K1=2, K2=34,
@@ -43,14 +48,28 @@ Phases, each fatal on failure:
      mini-step (`train profile:`), two mini-steps of B=8 with remat "none"
      (their times and peak memory), the eval step on the trained weights
      (launches K1/K2/K3 = 2/34/0), and the saved train state loaded into
-     the engine, which folds it and answers 2 clips (2/34/48).
-It then prints the kernels line (launches from phase 4), the card line and,
-last, the ok line.
+     the engine, which folds it and answers 2 clips (2/34/48);
+  7. serve the same widths in int8 (`int8:` lines): calibrate static
+     activation scales on a seeded B=2 batch (towers and adapters), then an
+     engine with int8_towers, int8_adapters and those scales answers 3
+     requests of B=2 clips in bf16 in turns with a bf16 engine on the same
+     weights and requests: clips/s of both, each engine's weight bytes
+     and a request's peak memory above what was resident, launches
+     K1/K2/K3/K4 = 34/2/48/430 per forward, drift against bf16 (max |delta
+     event_scores| over the spread, share of segment_preds that agree), one
+     profiled int8 forward (K4 its own group); in float32, the int8 forward
+     with kernels against the int8 plain forward (INT8_TOL, per output) and
+     each of its 430 K4 calls against the plain version on its own input
+     (TOL); then one
+     forward each of towers only (K4 = 142), dynamic scales and int8_attn
+     (K1 = 10), with launch counts and finite outputs checked.
+It then prints the kernels line (launches from phase 4, K4's from phase 7),
+the card line and, last, the ok line.
 
     python3 chip_smoke.py --only adapter_bottleneck   # phases 1-3 for K3 alone
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 to 6; such a run prints no ok line.
+phases 4 to 7; such a run prints no ok line (`--only int8_linear` for K4).
 """
 from __future__ import annotations
 
@@ -66,14 +85,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense; f32 without TF32
+# H100 SXM dense; f32 without TF32; int8 the tensor cores' int8 x int8 -> int32 rate
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 SPIN_HZ = 2.0e9  # cycles a second for torch.cuda._sleep: above the H100's 1.98 GHz boost
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 2e-2)}  # (atol, rtol)
 MODEL_TOL = (2e-3, 2e-3)  # f32 kernel forward vs f32 plain forward (atol, rtol)
 BATCH = 2
 REQUESTS = 3
-PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48}
+PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48,
+               "int8_linear": 0}
 SOURCES = {
     "window_attention": ("dg_sct_tpu_torch/csrc/window_attention.cu",
                          "dg_sct_tpu/ops/pallas/window_attention.py:73"),
@@ -81,6 +102,8 @@ SOURCES = {
                         "dg_sct_tpu/ops/pallas/block_attention.py:113"),
     "adapter_bottleneck": ("dg_sct_tpu_torch/csrc/adapter_bottleneck.cu",
                            "dg_sct_tpu/ops/pallas/adapter_bottleneck.py:66"),
+    "int8_linear": ("dg_sct_tpu_torch/csrc/int8_linear.cu",
+                    "dg_sct_tpu/ops/quant.py:52 linear_int8 (an XLA int8 dot, no pallas_call)"),
 }
 
 
@@ -163,6 +186,9 @@ def compare(got, ref, dtype):
 # phase 3: the kernels at the main path's shapes
 # ---------------------------------------------------------------------------
 
+FLOAT_ATTN = {"qkv": {"kernel": None}, "proj": {"kernel": None}}  # a block of the bf16 path
+
+
 def kernel_cases(cfg):
     """(kernel, case, launches per forward): every main-path shape, with the
     number of calls one forward makes at it; K1 also at the shapes it takes
@@ -179,7 +205,7 @@ def kernel_cases(cfg):
                 H, W = m["res"]
                 N, ws = m["ws"] ** 2, m["ws"]
                 nW = (H // ws) * (W // ws)
-                on_k2 = fused_block_eligible(m["dim"], m["heads"], False, True)
+                on_k2 = fused_block_eligible(m["dim"], m["heads"], False, True, FLOAT_ATTN)
                 for masked in (False, True):
                     key = (frames * nW, N, m["heads"], m["dim"] // m["heads"], nW, masked,
                            H, W, ws)
@@ -195,7 +221,39 @@ def kernel_cases(cfg):
             k3[key] = k3.get(key, 0) + 2
     return ([("window_attention", k, n) for k, n in k1.items()]
             + [("block_attention", k, n) for k, n in k2.items()]
-            + [("adapter_bottleneck", k, n) for k, n in k3.items()])
+            + [("adapter_bottleneck", k, n) for k, n in k3.items()]
+            + [("int8_linear", k, n) for k, n in sorted(int8_call_shapes(cfg).items())])
+
+
+INT8_TOWERS = ("swin", "htsat", "adapters")  # int8 serving's headline configuration
+
+
+def int8_call_shapes(cfg, towers=INT8_TOWERS):
+    """{(rows, K, N): calls} of the quantized linears one forward of BATCH
+    clips makes, from a plain forward on the "meta" device (shapes only)
+    whose eligible linears are tagged to record their inputs' shapes."""
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.ops import quant
+
+    class Shapes(quant.Recorder):
+        def record(self, qid, x):
+            self.calls.append((qid, tuple(x.shape)))
+
+    params, state = ave.init_ave_model(cfg, device="meta")
+    shapes = Shapes()
+    tagged = dict(params)
+    tagged.update(quant.attach_qtags(quant._ordered_towers(params, towers), recorder=shapes))
+    out_dims = quant.qid_shape_map(quant._ordered_towers(params, towers))
+    T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.swin.img_size
+    with torch.inference_mode():
+        ave.forward(tagged, state, torch.empty(BATCH, T, L, device="meta"),
+                    torch.empty(BATCH, T, S, S, 3, device="meta"), cfg, kernels=False,
+                    device="meta")
+    out = {}
+    for qid, shape in shapes.calls:
+        key = (math.prod(shape[:-1]), shape[-1], out_dims[qid][1])
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def composed_half_block(x, wqkv, bqkv, wproj, bproj, full_bias, ln_s, ln_b, logit_scale, *,
@@ -244,6 +302,43 @@ def composed_bottleneck(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, *, has_ln1):
     return F.layer_norm(o.transpose(0, 1).reshape(rows, C), (C,), ln2s, ln2b, eps=1e-5)
 
 
+def int8_inputs(key, dtype, gen):
+    """K4's operands at (rows, K, N) on the card: x, the quantized weight (the
+    layout `quantize_linear` makes), kscale, a static scale under which a few
+    values of x clip, and a bias in x's type."""
+    from dg_sct_tpu_torch.ops.quant import quantize_linear
+
+    rows, K, N = key
+    x = torch.randn(rows, K, device="cuda", generator=gen).to(dtype)
+    q = quantize_linear({"kernel": torch.randn(K, N, device="cuda", generator=gen) * K ** -0.5})
+    ascale = x.float().abs().amax() * (0.9 / 127.0)
+    bias = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dtype)
+    return x, q["kernel_q"], q["kscale"], ascale, bias
+
+
+def composed_int8_linear(x, wq, kscale, ascale, bias):
+    """K4's function as library calls: the quantize in PyTorch, `torch._int_mm`
+    (int8 x int8 -> int32), the dequantize and bias in PyTorch. A yardstick
+    only; the port never calls it."""
+    xq = torch.clamp(torch.round(x.float() / ascale), -127, 127).to(torch.int8)
+    return (torch._int_mm(xq, wq).float() * (ascale * kscale) + bias.float()).to(x.dtype)
+
+
+def check_int8_dynamic(key, dtype, gen):
+    """K4 with dynamic per-row scales against its plain version; max abs error."""
+    from dg_sct_tpu_torch.ops.kernels import int8_linear as K4
+
+    x, wq, kscale, _, bias = int8_inputs(key, dtype, gen)
+    got, ref = K4.int8_linear(x, wq, kscale, None, bias), K4.linear_int8_plain(x, wq, kscale,
+                                                                              None, bias)
+    torch.cuda.synchronize()
+    err, worst = compare(got, ref, dtype)
+    if worst > 1.0:
+        raise AssertionError(f"int8_linear dynamic {key} {dtype}: max error {err:.3e} exceeds "
+                             f"atol/rtol {TOL[dtype]}")
+    return err
+
+
 def window_bias(bias, mask, Bw):
     """bias (H, N, N) plus mask (nW, N, N) or None as one (Bw, H, N, N) tensor."""
     H, N, _ = bias.shape
@@ -259,6 +354,7 @@ def run_case(name, key, dtype, gen):
     None, composed fn or None, flops, bytes)."""
     from dg_sct_tpu_torch.ops.kernels import adapter_bottleneck as K3
     from dg_sct_tpu_torch.ops.kernels import block_attention as K2
+    from dg_sct_tpu_torch.ops.kernels import int8_linear as K4
     from dg_sct_tpu_torch.ops.kernels import window_attention as K1
     from dg_sct_tpu_torch.ops.windows import shift_attn_mask
 
@@ -309,6 +405,12 @@ def run_case(name, key, dtype, gen):
         return (lambda: K2.fused_attn_half_block(*args, **kw),
                 lambda: K2.fused_attn_half_block_plain(*args, **kw), None, composed,
                 flops, nbytes)
+    if name == "int8_linear":
+        rows, K, N = key
+        args = int8_inputs(key, dtype, gen)
+        nbytes = it * rows * K + K * N + 4 * N + 4 + it * N + it * rows * N
+        return (lambda: K4.int8_linear(*args), lambda: K4.linear_int8_plain(*args), None,
+                lambda: composed_int8_linear(*args), 2 * rows * K * N, nbytes)
     rows, C, g, go, has_ln1 = key
     x = rnd(rows, C)
     wd, wu = rnd(g, C // g, go, scale=(C // g) ** -0.5), rnd(g, go, C // g, scale=go ** -0.5)
@@ -322,10 +424,25 @@ def run_case(name, key, dtype, gen):
             lambda: composed_bottleneck(*args, has_ln1=has_ln1), flops, nbytes)
 
 
+def poison_shared_memory():
+    """Leave NaN in the shared memory of every SM: K4 over a float32 x of NaN
+    stages raw NaN tiles in its first 48 KB. The float32 checks of K1 and K2
+    run right after it, so a read of shared memory that their copies never
+    wrote shows as NaN."""
+    from dg_sct_tpu_torch.ops.kernels import int8_linear as K4
+    from dg_sct_tpu_torch.ops.quant import quantize_linear
+
+    q = quantize_linear({"kernel": torch.ones(256, 128, device="cuda")})
+    K4.int8_linear(torch.full((64 * 4 * 132, 256), math.nan, device="cuda"), q["kernel_q"],
+                   q["kscale"], torch.ones((), device="cuda"))
+
+
 def check_case(name, key, dtype, gen):
     """Kernel and plain version on the same inputs, held at TOL; returns the
     case's functions and its max abs error."""
     kern, plain, lib, composed, flops, nbytes = run_case(name, key, dtype, gen)
+    if dtype == torch.float32 and name in ("window_attention", "block_attention"):
+        poison_shared_memory()
     got, ref = kern(), plain()
     torch.cuda.synchronize()
     err, worst = compare(got, ref, dtype)
@@ -344,7 +461,8 @@ def check_kernels(cfg, only=None):
             continue
         for dtype in (torch.float32, torch.bfloat16):
             kern, plain, lib, composed, flops, nbytes, ref, err = check_case(name, key, dtype, gen)
-            b_ms, ops_ms, bytes_ms = bound(flops, nbytes, dtype)
+            b_ms, ops_ms, bytes_ms = bound(flops, nbytes,
+                                           torch.int8 if name == "int8_linear" else dtype)
             k_ms, k_dev, k_host = time_ms(kern)
             l_ms, l_dev, _ = time_ms(lib) if lib else (None, None, None)
             c_ms, c_dev, _ = time_ms(composed) if composed else (None, None, None)
@@ -357,6 +475,15 @@ def check_kernels(cfg, only=None):
                 row["composed_err"] = (composed().float() - ref.float()).abs().max().item()
             if name == "block_attention" and dtype == torch.bfloat16:
                 row["stages_ms"] = stage_ms(kern)  # where K2's time goes, kernel by kernel
+            if name == "int8_linear":
+                row["dynamic_err"] = check_int8_dynamic(key, dtype, gen)
+                if dtype == torch.bfloat16:  # yardstick: the bf16 matmul + bias int8 replaces
+                    m, k, n = key
+                    xb = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+                    wb = torch.randn(k, n, device="cuda", generator=gen).to(dtype)
+                    bb = torch.zeros(n, device="cuda", dtype=dtype)
+                    row["matmul_ms"], row["matmul_device_ms"], _ = time_ms(
+                        lambda: torch.addmm(bb, xb, wb))
             rows.append(row)
             print("kernel", json.dumps(row), flush=True)
     if not only or "adapter_bottleneck" in only:
@@ -381,12 +508,15 @@ def kernels_line(rows, counts):
         known = lambda k: tot(k) if main and None not in [r[k] for r in main] else None
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=max(r["max_abs_err"] for r in mine),
+            launches=counts[name],
+            max_abs_err=max(max(r["max_abs_err"], r.get("dynamic_err", 0.0)) for r in mine),
             ms=tot("kernel_ms"), device_ms=tot("kernel_device_ms"), plain_ms=tot("plain_ms"),
             bound_ms=tot("bound_ms"),
             bound_by="operations" if tot("ops_ms") >= tot("bytes_ms") else "bytes",
             library_ms=known("library_ms"), library_device_ms=known("library_device_ms"),
             composed_ms=known("composed_ms"), composed_device_ms=known("composed_device_ms")))
+        if name == "int8_linear":
+            out[-1].update(matmul_ms=known("matmul_ms"), matmul_device_ms=known("matmul_device_ms"))
     return {"kernels": out}
 
 
@@ -397,6 +527,7 @@ def kernels_line(rows, counts):
 KERNEL_GROUPS = (("K1", ("window_attention_kernel",)),
                  ("K2", ("block_attn_",)),
                  ("K3", ("bottleneck_kernel",)),
+                 ("K4", ("int8_linear_kernel",)),
                  ("library GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("memcpy", ("memcpy", "memset")))
 
@@ -455,44 +586,56 @@ def profile_run(fn, what, tag, host_ops=True):
         print(f"{tag}:   {us / 1e3:9.3f} ms  {kernel_group(name):5s} {short[:110]}", flush=True)
 
 
-def run_model(cfg):
+def seeded_model(cfg, device="cuda"):
+    """Float32 (params, state) from seed 0 with seeded nonzero adapter gates
+    (zero at init, the adapters would not count), as phases 4, 6 and 7 use."""
     from dg_sct_tpu_torch.models import ave
-    from dg_sct_tpu_torch.models.interleave import ADKEYS, fold_adapters_eval
-    from dg_sct_tpu_torch.ops.basic import normalize_frames_u8
-    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from dg_sct_tpu_torch.serve import AVEInferenceEngine
+    from dg_sct_tpu_torch.models.interleave import ADKEYS
 
-    params, state = ave.init_ave_model(cfg, seed=0, device="cuda")
-    # adapters are zero-gated at init; seeded nonzero gates make them count
-    gen = torch.Generator(device="cuda")
+    params, state = ave.init_ave_model(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device)
     gen.manual_seed(1)
     for k in ADKEYS:
         for ap in params["adapters"][k]:
             for g in ("gate", "gate_av"):
                 ap[g] = torch.empty_like(ap[g]).uniform_(0.2, 0.6, generator=gen)
+    return params, state
 
+
+def seeded_requests(cfg):
+    """REQUESTS requests of BATCH seeded clips: float, int16 and float waves
+    with uint8 frames."""
     rs = np.random.RandomState(0)
     T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.swin.img_size
     wave_f = (0.3 * rs.randn(BATCH, T, L)).clip(-1, 1).astype(np.float32)
-    requests = [(wave_f, rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8)),
-                ((wave_f * 32767).astype(np.int16),
-                 rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8)),
-                (wave_f[::-1].copy(), rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8))]
+    frames = lambda: rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8)
+    return [(wave_f, frames()), ((wave_f * 32767).astype(np.int16), frames()),
+            (wave_f[::-1].copy(), frames())][:REQUESTS]
 
+
+def run_model(cfg):
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.models.interleave import fold_adapters_eval
+    from dg_sct_tpu_torch.ops.basic import normalize_frames_u8
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.serve import AVEInferenceEngine
+
+    params, state = seeded_model(cfg)
+    requests = seeded_requests(cfg)
     eng = AVEInferenceEngine(cfg, params, state, batch_size=BATCH, device="cuda")
     eng.predict(*requests[0])                       # warm-up: allocator, cuBLAS handles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    outs = [eng.predict(w, f) for w, f in requests[:REQUESTS]]
+    outs = [eng.predict(w, f) for w, f in requests]
     dt = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for o in outs:
         assert o["event_scores"].shape == (BATCH, cfg.num_classes), o["event_scores"].shape
-        assert o["is_event_scores"].shape == (BATCH, T), o["is_event_scores"].shape
-        assert o["segment_preds"].shape == (BATCH, T)
+        assert o["is_event_scores"].shape == (BATCH, cfg.num_frames), o["is_event_scores"].shape
+        assert o["segment_preds"].shape == (BATCH, cfg.num_frames)
         for v in o.values():
             assert np.isfinite(v).all(), "non-finite engine output"
     want = {k: v * REQUESTS for k, v in PER_FORWARD.items()}
@@ -801,7 +944,8 @@ def run_serving(cfg):
 TRAIN_BATCH = 8      # TrainConfig.batch_size: 80 frames and 80 audio clips a mini-step
 TRAIN_ACCUM = 2
 TRAIN_STEPS = 4
-EVAL_LAUNCHES = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 0}
+EVAL_LAUNCHES = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 0,
+                 "int8_linear": 0}
 
 
 def unused_leaf(path) -> bool:
@@ -865,8 +1009,6 @@ def run_training(cfg, device="cuda"):
     import tempfile
 
     from dg_sct_tpu_torch.configs import TrainConfig
-    from dg_sct_tpu_torch.models import ave
-    from dg_sct_tpu_torch.models.interleave import ADKEYS
     from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from dg_sct_tpu_torch.serve import AVEInferenceEngine
     from dg_sct_tpu_torch.train import ave_train
@@ -876,13 +1018,8 @@ def run_training(cfg, device="cuda"):
 
     torch.cuda.empty_cache()
     tcfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-    params, state = ave.init_ave_model(cfg, seed=0, device=device)
+    params, state = seeded_model(cfg, device)
     gen = torch.Generator(device=device)
-    gen.manual_seed(1)
-    for k in ADKEYS:  # nonzero gates, as phase 4
-        for ap in params["adapters"][k]:
-            for g in ("gate", "gate_av"):
-                ap[g] = torch.empty_like(ap[g]).uniform_(0.2, 0.6, generator=gen)
     tr, fr = ave_train.partition_params(params)
     p0 = {p: t.cpu() for p, t in tree_paths(params)}  # on the host: not in the peak
     s0 = {p: t.cpu() for p, t in tree_paths(state)}
@@ -987,6 +1124,223 @@ def run_training(cfg, device="cuda"):
           f"{counts}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: int8 serving of the full-width model
+# ---------------------------------------------------------------------------
+
+INT8_PER_FORWARD = {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 48,
+                    "int8_linear": 430}
+INT8_ELIGIBLE = 431     # eligible linears of towers and adapters; HTS-AT's head is never called
+INT8_TOWERS_ONLY = 142  # K4 a forward with the towers alone quantized
+INT8_ATTN_K1 = 10       # K1 a forward with int8_attn: HTS-AT stages 1-3 only
+# f32 int8 forward, kernels against the plain path: max |delta| over the logit
+# spread, per output. K1-K3 differ from their plain versions by ~1e-6, and the
+# int8 forward amplifies any difference that carries a value across a rounding
+# boundary of a quantize. The bounds sit between two sets of readings of this
+# seeded forward on the H100: above the sound kernels' (7.2e-3, 2.3e-2) and the
+# plain path's own move under a 1e-6 relative change of its inputs (5.6e-3,
+# 4.7e-2, printed beside), and below what K1 gave while it read unwritten TF32
+# halves of its pad rows (event_scores 0.025-0.106, is_event_scores 0.086-0.46).
+# Every K4 call of the forward is also held against the plain version on the
+# very input it was given (TOL).
+INT8_TOL = {"event_scores": 0.02, "is_event_scores": 0.07}
+INT8_NUDGE = 1e-6  # relative change of the frames for the sensitivity
+
+
+def int8_variants(scales):
+    """(name, engine options, launches a forward) of the other int8 runs."""
+    return (("towers only", dict(int8_towers=True, act_scales=scales),
+             dict(INT8_PER_FORWARD, int8_linear=INT8_TOWERS_ONLY)),
+            ("dynamic scales", dict(int8_towers=True, int8_adapters=True, act_scales=None),
+             INT8_PER_FORWARD),
+            ("int8_attn", dict(int8_towers=True, int8_adapters=True, act_scales=scales,
+                               int8_attn=True),
+             dict(INT8_PER_FORWARD, window_attention=INT8_ATTN_K1)))
+
+
+def spread_err(got, ref):
+    """max |got - ref| over max |ref|."""
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
+
+
+def check_int8_calls(qp, fs, wave, frames, cfg, device):
+    """One forward of the quantized tree `qp` with kernels, in which every
+    quantized linear's input also goes through K4 and its plain version
+    side by side (a tag on each, as calibration records): (calls, max abs
+    error). Fatal beyond TOL."""
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.ops import quant
+    from dg_sct_tpu_torch.ops.kernels import int8_linear as K4
+
+    towers = quant._ordered_towers(qp, INT8_TOWERS)
+    nodes = quant.eligible_linears(towers)
+
+    class Check(quant.Recorder):
+        def record(self, qid, x):
+            p = nodes[qid]
+            args = (x.reshape(-1, x.shape[-1]), p["kernel_q"], p["kscale"], p.get("ascale"),
+                    p.get("bias"))
+            got, ref = K4.int8_linear(*args), K4.linear_int8_plain(*args)
+            diff = torch.nan_to_num((got - ref).abs(), nan=math.inf)
+            worst = (diff / (TOL[x.dtype][0] + TOL[x.dtype][1] * ref.abs())).max()
+            bad_x = (~torch.isfinite(x)).sum()
+            self.calls.append((qid, torch.stack([diff.max(), worst, bad_x.float()])))
+
+    check = Check()
+    tagged = dict(qp)
+    tagged.update(quant.attach_qtags(towers, recorder=check))
+    with torch.inference_mode():
+        ave.forward(tagged, fs, wave, frames, cfg, kernels=True, device=device)
+    stats = torch.stack([e for _, e in check.calls]).cpu()
+    order = stats[:, 1].argsort(descending=True)[:3].tolist()
+    for i in order:
+        qid = check.calls[i][0]
+        print(f"int8 f32: K4 call of qid {qid} {tuple(nodes[qid]['kernel_q'].shape)}: max abs "
+              f"err {stats[i, 0]:.3e}, error/tolerance {stats[i, 1]:.3e}, non-finite inputs "
+              f"{int(stats[i, 2])}", flush=True)
+    err, worst = stats[:, 0].max().item(), stats[:, 1].max().item()
+    if not worst <= 1.0:
+        raise AssertionError(f"int8 f32: a K4 call of the forward disagrees with the plain "
+                             f"version ({err:.3e})")
+    return len(check.calls), err
+
+
+def run_int8(cfg, device="cuda"):
+    """Phase 7: calibrate on a seeded batch, serve the full-width model in int8
+    (towers and adapters, static scales) in turns with a bf16 engine on the
+    same weights and requests; drift, a profiled forward, the f32 int8
+    forward with kernels against the plain one, and the other int8 options.
+    Returns the int8 engine's launch counts over its REQUESTS requests."""
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.models.interleave import fold_adapters_eval
+    from dg_sct_tpu_torch.ops import quant
+    from dg_sct_tpu_torch.ops.basic import normalize_frames_u8
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.serve import AVEInferenceEngine
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+
+    torch.cuda.empty_cache()
+    params, state = seeded_model(cfg, device)
+    bf = AVEInferenceEngine(cfg, params, state, batch_size=BATCH, device=device)
+    # the calibration batch of bench.py:666-674, in bf16
+    rs = np.random.RandomState(7)
+    T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.swin.img_size
+    cw = torch.as_tensor((rs.randn(BATCH, T, L) * 0.1).astype(np.float32), device=device)
+    ci = torch.as_tensor(rs.rand(BATCH, T, S, S, 3).astype(np.float32), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scales = quant.calibrate_ave(bf.params, bf.state, bf.cfg, cw.to(torch.bfloat16),
+                                 ci.to(torch.bfloat16), towers=INT8_TOWERS, gelu=bf.gelu,
+                                 device=device)
+    dt = time.perf_counter() - t0
+    shapes = quant.qid_shape_map(quant._ordered_towers(bf.params, INT8_TOWERS))
+    if len(shapes) != INT8_ELIGIBLE or len(scales) != INT8_PER_FORWARD["int8_linear"]:
+        raise AssertionError(f"int8: {len(scales)} scales for {len(shapes)} eligible linears")
+    print(f"int8: calibrated {len(scales)} activation scales of {len(shapes)} eligible linears "
+          f"in {dt:.3f} s (one plain bf16 forward of {BATCH} clips); absmax "
+          f"{min(scales.values()):.4g} to {max(scales.values()):.4g}", flush=True)
+
+    q8 = AVEInferenceEngine(cfg, params, state, batch_size=BATCH, device=device,
+                            int8_towers=True, int8_adapters=True, act_scales=scales)
+    engines = {"bf16": (bf, PER_FORWARD), "int8": (q8, INT8_PER_FORWARD)}
+    requests = seeded_requests(cfg)
+    for eng, _ in engines.values():
+        eng.predict(*requests[0])  # warm-up
+    weights = {k: sum(t.nbytes for _, t in tree_paths(eng.params) if torch.is_tensor(t))
+               for k, (eng, _) in engines.items()}
+    secs, work, outs = {k: 0.0 for k in engines}, {k: 0 for k in engines}, {k: [] for k in engines}
+    int8_counts = dict.fromkeys(INT8_PER_FORWARD, 0)
+    for r, req in enumerate(requests):  # in turns: bf16 int8, int8 bf16, bf16 int8
+        for name in ("bf16", "int8") if r % 2 == 0 else ("int8", "bf16"):
+            eng, want = engines[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = eng.predict(*req)
+            secs[name] += time.perf_counter() - t0
+            counts = launch_counts()
+            work[name] = max(work[name], torch.cuda.max_memory_allocated() - resident)
+            if counts != want:
+                raise AssertionError(f"int8: {name} request {r}: launches {counts}, "
+                                     f"expected {want}")
+            if name == "int8":
+                int8_counts = {k: int8_counts[k] + v for k, v in counts.items()}
+            if not all(np.isfinite(v).all() for v in out.values()):
+                raise AssertionError(f"int8: {name} request {r}: non-finite outputs")
+            if out["event_scores"].shape != (BATCH, cfg.num_classes):
+                raise AssertionError(f"int8: {name}: event_scores {out['event_scores'].shape}")
+            outs[name].append(out)
+    n = BATCH * len(requests)
+    print(f"int8: {len(requests)} requests of {BATCH} clips in turns with bf16: int8 "
+          f"{n / secs['int8']:.3f} clips/s, bf16 {n / secs['bf16']:.3f} clips/s; weights + a "
+          f"request's peak above what was resident: int8 {weights['int8'] / 2**30:.3f} + "
+          f"{work['int8'] / 2**30:.3f} GiB, bf16 {weights['bf16'] / 2**30:.3f} + "
+          f"{work['bf16'] / 2**30:.3f} GiB; launches a forward int8 {INT8_PER_FORWARD}, bf16 "
+          f"{PER_FORWARD}; card {torch.cuda.get_device_name(0)}", flush=True)
+    cat = lambda name, k: np.concatenate([o[k] for o in outs[name]])
+    agree = float((cat("int8", "segment_preds") == cat("bf16", "segment_preds")).mean())
+    print(f"int8: drift against bf16 over {n} clips: max |delta event_scores| / max |event_scores| "
+          f"{spread_err(cat('int8', 'event_scores'), cat('bf16', 'event_scores')):.4f}, "
+          f"is_event_scores "
+          f"{spread_err(cat('int8', 'is_event_scores'), cat('bf16', 'is_event_scores')):.4f}; "
+          f"segment_preds agree {100.0 * agree:.1f}%", flush=True)
+
+    profile_run(lambda: q8.forward_batch(*requests[0]), f"one int8 forward of {BATCH} clips",
+                "int8 profile")
+    del q8, engines
+
+    # float32: the int8 forward with kernels against the int8 plain path
+    fp, fs = fold_adapters_eval(params, state, cfg)
+    qp = quant.quantize_eval_params(fp, towers=INT8_TOWERS, act_scales=scales)
+    wave = torch.as_tensor(requests[0][0], device=device)
+    frames = normalize_frames_u8(torch.as_tensor(requests[0][1], device=device), torch.float32)
+    gen = torch.Generator(device).manual_seed(3)
+    nudge = lambda t: t * (1.0 + INT8_NUDGE * torch.randn(t.shape, device=device, generator=gen))
+    with torch.inference_mode():
+        reset_launch_counts()
+        got = ave.forward(qp, fs, wave, frames, cfg, kernels=True, device=device)
+        counts = launch_counts()
+        ref = ave.forward(qp, fs, wave, frames, cfg, kernels=False, device=device)
+        near = ave.forward(qp, fs, nudge(wave), nudge(frames), cfg, kernels=False, device=device)
+        flt = ave.forward(fp, fs, wave, frames, cfg, kernels=False, device=device)
+    if counts != INT8_PER_FORWARD:
+        raise AssertionError(f"int8 f32: launches {counts}, expected {INT8_PER_FORWARD}")
+    calls, err = check_int8_calls(qp, fs, wave, frames, cfg, device)
+    print(f"int8 f32: each of the {calls} K4 calls of a forward against the plain version on "
+          f"its own input: max abs err {err:.3e} (atol/rtol {TOL[torch.float32]})", flush=True)
+    bad = []
+    for k, bound in INT8_TOL.items():
+        g, r = got[k].float().cpu().numpy(), ref[k].float().cpu().numpy()
+        err = spread_err(g, r)
+        print(f"int8 f32 {k}: kernels vs plain max |delta| / max |plain| {err:.3e} (bound "
+              f"{bound}), max abs diff {np.abs(g - r).max():.3e}; the plain path moves "
+              f"{spread_err(near[k].float().cpu().numpy(), r):.3e} with wave and frames "
+              f"changed by {INT8_NUDGE:g} (relative); int8 against float (plain, f32) "
+              f"{spread_err(r, flt[k].float().cpu().numpy()):.3e}", flush=True)
+        if not np.isfinite(g).all() or err > bound:
+            bad.append(f"{k} ({err:.3e})")
+    if bad:
+        raise AssertionError(f"int8 f32: kernels and plain path disagree: {', '.join(bad)}")
+    del fp, fs, qp, got, ref, near, flt
+
+    for name, opts, want in int8_variants(scales):
+        eng = AVEInferenceEngine(cfg, params, state, batch_size=BATCH, device=device, **opts)
+        eng.predict(*requests[1])  # warm-up
+        reset_launch_counts()
+        out = eng.predict(*requests[1])
+        counts = launch_counts()
+        if counts != want or not all(np.isfinite(v).all() for v in out.values()):
+            raise AssertionError(f"int8 {name}: launches {counts} (expected {want}) or "
+                                 f"non-finite outputs")
+        print(f"int8 {name}: launches {counts}, finite; event_scores against bf16 "
+              f"{spread_err(out['event_scores'], outs['bf16'][1]['event_scores']):.4f} of the "
+              f"spread", flush=True)
+        del eng
+    return int8_counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", action="append", choices=sorted(SOURCES),
@@ -1029,6 +1383,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_training(cfg)
     print(f"train: phase 6 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    int8_counts = run_int8(cfg)
+    print(f"int8: phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
+    counts["int8_linear"] = int8_counts["int8_linear"]  # K4's main path is phase 7
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 // Tensor-core and asynchronous-copy building blocks for sm_90a: cp.async,
-// ldmatrix and warp-level mma.sync, shared by K1 and K2.
+// ldmatrix and warp-level mma.sync, shared by K1, K2, K3 and K4.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 / m16n8k8"),
 // with g = lane / 4 and t = lane % 4:
@@ -8,6 +8,10 @@
 //                  B:      b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
 //   tf32 m16n8k8   A:      a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
 //                  B:      b0 (k t, n g)  b1 (k t+4, n g)
+//   s8 m16n8k32    A:      a0 (g, 4t..4t+3)  a1 (g+8, 4t..)  a2 (g, 4t+16..)  a3 (g+8, 4t+16..)
+//                  B:      b0 (k 4t..4t+3, n g)  b1 (k 4t+16..4t+19, n g)
+//                  C (16 x 8, s32) as the f32 C above
+// Four int8 in one register hold the lowest k (or column) in the lowest byte.
 // A pair of bf16 in one register holds the lower column (or k) in its low half.
 #pragma once
 
@@ -70,6 +74,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b, s8 operands, int32 accumulation (exact while |c| < 2^31).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -125,6 +125,20 @@ __device__ __forceinline__ void prepare_rows(float* pairs, int npairs, int N, in
       *reinterpret_cast<uint4*>(x + tile) = small;
     }
   }
+  // Zeros in the small halves of k and v wherever the loop above writes none
+  // (pad rows N..NP-1, pad columns D..cols(D)-1): load_tile fills only the
+  // slots it copies into, so these would hold what an earlier kernel left in
+  // shared memory, and a zero weight or a zero q column times a non-finite
+  // leftover is NaN.
+  const int chunks = Tile::cols(D) / 4, per_slot = 16 * NKB * chunks;
+  for (int i = 32 * warp + lane; i < npairs * 2 * per_slot; i += 32 * nwarps) {
+    const int p = i / (2 * per_slot), kv = i / per_slot - 2 * p, e = i - (2 * p + kv) * per_slot;
+    const int row = e / chunks, col = 4 * (e - row * chunks);
+    if (row < N && col < D) continue;
+    const int slot = (kv ? Tile::kSlotV : Tile::kSlotK) + 1;
+    *reinterpret_cast<float4*>(pairs + (p * Tile::kTiles + slot) * tile + row * S + col) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
 // Query rows [r0, r0 + 16) of one window and head, by one warp, from the

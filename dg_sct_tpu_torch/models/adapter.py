@@ -8,9 +8,13 @@ Tokens stay in (B, N, C) layout and every 1x1 conv is a matmul. Stages:
   4. spatial attention; its softmax(tanh) map is also the tower's pooling map;
   5. LN -> grouped bottleneck down/BN/ReLU/up/BN -> LN -> gate. After
      `fold_eval` this stage runs as K3 when kernels are on.
+Every 2-D linear of stages 1-4 goes through `ops.basic.linear`, so a tree
+quantized by `ops.quant` runs them in int8 (K4 when kernels are on).
 Only stage 5's output is the residual added to the tower stream.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -80,12 +84,21 @@ def fold_eval(params, state, cfg: AdapterConfig):
     return p, s
 
 
-def _token_linear(p, x, *, with_bias=True):
-    """Apply a (M, N) token-axis map to x (B, M, D) -> (B, N, D)."""
-    y = x.transpose(-1, -2) @ p["kernel"]
-    if with_bias and "bias" in p:
-        y = y + p["bias"]
-    return y.transpose(-1, -2)
+def _token_linear(p, x, *, with_bias=True, kernels=True):
+    """Apply a (M, N) token-axis map to x (B, M, D) -> (B, N, D) through
+    `linear`, so a quantized map runs int8 with its rows over the token axis
+    (`dg_sct_tpu/models/adapter.py:130`)."""
+    if not with_bias and "bias" in p:
+        p = {k: v for k, v in p.items() if k != "bias"}
+    return linear(p, x.transpose(-1, -2), kernels=kernels).transpose(-1, -2)
+
+
+def _kernel_f32(p):
+    """The kernel of a float or a quantized linear: "kernel" itself, or
+    kernel_q * kscale in float32."""
+    if "kernel_q" in p:
+        return p["kernel_q"].to(torch.float32) * p["kscale"][None, :]
+    return p["kernel"]
 
 
 def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=False):
@@ -100,14 +113,18 @@ def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=
     M, D = other.shape[1], other.shape[2]
 
     # ---- stage 1: resample prompts to (B, N, C), cheaper order first ------------
+    lin = functools.partial(linear, kernels=kernels)
     if M * N * D + N * D * C <= M * D * C + M * N * C:
-        prompts = linear(params["chan_align"], _token_linear(params["token_resample"], other))
+        prompts = lin(params["chan_align"],
+                      _token_linear(params["token_resample"], other, kernels=kernels))
     else:
         # exact reorder: align(resample(x) + bias_n) =
         #   resample(x @ W) + bias_n * colsum(W) + b_c
         ca = params["chan_align"]
-        prompts = _token_linear(params["token_resample"], other @ ca["kernel"], with_bias=False)
-        wsum = ca["kernel"].sum(0).to(x.dtype)
+        aligned = lin({k: v for k, v in ca.items() if k != "bias"}, other)
+        prompts = _token_linear(params["token_resample"], aligned, with_bias=False,
+                                kernels=kernels)
+        wsum = _kernel_f32(ca).sum(0).to(x.dtype)
         prompts = (prompts + params["token_resample"]["bias"][None, :, None] * wsum[None, None, :]
                    + ca["bias"])
 
@@ -120,16 +137,16 @@ def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=
 
     # ---- stage 3: channel attention -------------------------------------------------
     other_mean = prompts.mean(1)                                           # (B, C)
-    q_a = torch.relu(linear(params["aff_audio_1"], other_mean))[:, None, :]
-    q_v = torch.relu(linear(params["aff_video_1"], x))
-    joint = torch.relu(linear(params["aff_bottleneck"], (q_a * q_v).mean(1)))
-    ch_map = torch.sigmoid(linear(params["aff_v_c_att"], joint))[:, None, :]  # (B, 1, C)
+    q_a = torch.relu(lin(params["aff_audio_1"], other_mean))[:, None, :]
+    q_v = torch.relu(lin(params["aff_video_1"], x))
+    joint = torch.relu(lin(params["aff_bottleneck"], (q_a * q_v).mean(1)))
+    ch_map = torch.sigmoid(lin(params["aff_v_c_att"], joint))[:, None, :]  # (B, 1, C)
     x_ch = x * (ch_map + 1.0)
 
     # ---- stage 4: spatial attention -------------------------------------------------
-    q_v2 = torch.relu(linear(params["aff_video_2"], x_ch))
-    q_a2 = torch.relu(linear(params["aff_audio_2"], other_mean))[:, None, :]
-    sp_logits = linear(params["aff_v_s_att"], q_v2 * q_a2)                # (B, N, 1)
+    q_v2 = torch.relu(lin(params["aff_video_2"], x_ch))
+    q_a2 = torch.relu(lin(params["aff_audio_2"], other_mean))[:, None, :]
+    sp_logits = lin(params["aff_v_s_att"], q_v2 * q_a2)                   # (B, N, 1)
     sp_maps = torch.softmax(torch.tanh(sp_logits).transpose(1, 2), dim=-1)  # (B, 1, N)
     x = x * (cfg.alpha * ch_map + cfg.beta * torch.sigmoid(sp_logits) + 1.0 - cfg.alpha)
 

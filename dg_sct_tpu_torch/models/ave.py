@@ -52,12 +52,15 @@ def cast_for_compute(tree, dtype):
 
 
 def forward(params, state, wave, images, cfg: AVEModelConfig, *, train=False, kernels=True,
-            gelu="exact", device=None, gen=None, mixup_lambda=None, remat_policy="full"):
+            int8_attn=False, gelu="exact", device=None, gen=None, mixup_lambda=None,
+            remat_policy="full"):
     """wave: (B, T, L); images: (B, T, H, W, 3) channels-last frames, both
     tensors or arrays, moved to `device` (None: the card), where `params`
     must lie. `kernels` runs K1-K3 where the JAX package's three Pallas
-    flags would; `gelu` is "exact" or "tanh". Frames fold into the batch
-    axis as (b t).
+    flags would, and K4 for the linears of a tree quantized by `ops.quant`;
+    `int8_attn` runs the quantized Swin-V2 blocks' attention core in int8
+    (the JAX package's `set_int8_attn`, here per call); `gelu` is "exact" or
+    "tanh". Frames fold into the batch axis as (b t).
 
     Eval returns the outputs. `train=True` returns (outputs, new state):
     BN on the batch's statistics and no kernel, whatever `kernels` says (as
@@ -81,7 +84,8 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, train=False, ke
     B, T = wave.shape[0], wave.shape[1]
     feats, new_state = I.forward(params, state, wave.reshape(B * T, -1),
                                  images.reshape((B * T,) + tuple(images.shape[2:])), cfg,
-                                 kernels=kernels and not train, gelu=gelu, train=train,
+                                 kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
+                                 train=train,
                                  gen=gen if train else None, mixup_lambda=mixup_lambda,
                                  remat_policy=remat_policy)
     f_v = feats["f_v"].reshape(B, T, -1)

@@ -87,21 +87,23 @@ def frontend(params, state, wave, cfg: HTSATConfig, *, train=False, gen=None,
 def block(params, x, *, dim, heads, res, ws, shift, kernels=True, gelu="exact", drop=None):
     """Pre-norm V1 Swin block. x: (N, L, C). `drop` (mask1, mask2, rate):
     drop_path on the attention and MLP residuals (training)."""
-    if fused_block_eligible(dim, heads, False, kernels):
+    if fused_block_eligible(dim, heads, False, kernels, params["attn"]):
         x = fused_half_block(params, x, kind="v1", heads=heads, res=res, ws=ws, shift=shift)
-        return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu)
+        return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels)
     H, W = res
     attn_out = shifted_window_attention(
         lambda w, m, nw: window_attention_v1(params["attn"], w, num_heads=heads, ws=ws,
                                              mask=m, nW=nw, kernels=kernels),
         layer_norm(params["norm1"], x), H=H, W=W, ws=ws, shift=shift)
     x = x + drop_residual(attn_out, drop, 0)
-    return x + drop_residual(mlp(params["mlp"], layer_norm(params["norm2"], x), gelu), drop, 1)
+    y = mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels)
+    return x + drop_residual(y, drop, 1)
 
 
-def patch_merging(params, x, res):
+def patch_merging(params, x, res, *, kernels=True):
     """V1 patch merging: norm(4C) then reduction."""
-    return linear(params["reduction"], layer_norm(params["norm"], merge_2x2(x, res)))
+    return linear(params["reduction"], layer_norm(params["norm"], merge_2x2(x, res)),
+                  kernels=kernels)
 
 
 def block_plan(cfg: HTSATConfig):

@@ -87,7 +87,7 @@ def remat(fn, policy: str):
 
 
 def _paired_step(blk_params, blk_state, f_v, f_a, v_drop, a_drop, vmeta, ameta, cfg, *,
-                 kernels, gelu, train):
+                 kernels, int8_attn, gelu, train):
     """One paired block: the four adapters around the Swin-V2 attention and
     MLP halves and the full HTS-AT block -> (f_v, f_a, a_maps, v_maps, new
     adapter states). `v_drop`/`a_drop`: (mask1, mask2, rate) of each tower's
@@ -99,7 +99,7 @@ def _paired_step(blk_params, blk_state, f_v, f_a, v_drop, a_drop, vmeta, ameta, 
                                          kernels=kernels, train=train)
     v_res, _, new_st["v_p1"] = A.adapter(ad["v_p1"], blk_state["v_p1"], f_v, f_a, acfg,
                                          kernels=kernels, train=train)
-    f_v = S.attn_half(vp, f_v, vmeta, kernels=kernels, drop=v_drop) + v_res
+    f_v = S.attn_half(vp, f_v, vmeta, kernels=kernels, int8_attn=int8_attn, drop=v_drop) + v_res
     f_a = H.block(ap, f_a, dim=ameta["dim"], heads=ameta["heads"], res=ameta["res"],
                   ws=ameta["ws"], shift=ameta["shift"], kernels=kernels, gelu=gelu,
                   drop=a_drop) + a_res
@@ -107,14 +107,15 @@ def _paired_step(blk_params, blk_state, f_v, f_a, v_drop, a_drop, vmeta, ameta, 
                                               kernels=kernels, train=train)
     v_res, v_maps, new_st["v_p2"] = A.adapter(ad["v_p2"], blk_state["v_p2"], f_v, f_a, acfg,
                                               kernels=kernels, train=train)
-    f_v = f_v + drop_residual(layer_norm(vp["norm2"], mlp(vp["mlp"], f_v, gelu)), v_drop, 1) \
-        + v_res
+    y = mlp(vp["mlp"], f_v, gelu, kernels=kernels)
+    f_v = f_v + drop_residual(layer_norm(vp["norm2"], y), v_drop, 1) + v_res
     return f_v, f_a + a_res, a_maps, v_maps, new_st
 
 
-def _plain_step(vp, f_v, v_drop, *, vmeta, kernels, gelu):
+def _plain_step(vp, f_v, v_drop, *, vmeta, kernels, int8_attn, gelu):
     """An unpaired Swin-V2 block."""
-    return S.block(vp, f_v, vmeta, kernels=kernels, gelu=gelu, drop=v_drop)
+    return S.block(vp, f_v, vmeta, kernels=kernels, int8_attn=int8_attn, gelu=gelu,
+                   drop=v_drop)
 
 
 def _drop_masks(gen, n, rate, device):
@@ -125,8 +126,8 @@ def _drop_masks(gen, n, rate, device):
     return (drop_path_mask(gen, n, rate, device), drop_path_mask(gen, n, rate, device), rate)
 
 
-def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, gelu="exact",
-            train=False, gen=None, mixup_lambda=None, remat_policy="full"):
+def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, int8_attn=False,
+            gelu="exact", train=False, gen=None, mixup_lambda=None, remat_policy="full"):
     """wave: (N, L) flattened clips; images: (N, H, W, 3) flattened frames.
     Returns ({"f_v" (N, 1, 1536), "f_a" (N, 1, 768), "vis_tokens" (N, 36,
     1536)}, new state).
@@ -136,7 +137,8 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, g
     block in order the visual drop_path masks (attention, MLP) and, in a
     paired block, the audio ones, all drawn before the block runs; with
     `mixup_lambda` (N,), mixup of the log-mel maps. Each paired step and
-    each plain visual block is checkpointed under `remat_policy`."""
+    each plain visual block is checkpointed under `remat_policy`.
+    `int8_attn`: the quantized Swin-V2 blocks run the int8 attention core."""
     device = wave.device
     f_v = S.patch_embed_tokens(params["swin"], images, cfg.swin)
     f_a, new_frontend_state = H.frontend(params["htsat"], state["htsat"], wave, cfg.htsat,
@@ -155,7 +157,7 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, g
             v_drop = _drop_masks(tower_gen, f_v.shape[0], vmeta["dpr"], device)
             if ai is None:
                 step = wrap(functools.partial(_plain_step, vmeta=vmeta, kernels=kernels,
-                                              gelu=gelu))
+                                              int8_attn=int8_attn, gelu=gelu))
                 f_v = step(vp, f_v, v_drop)
                 continue
             ap = params["htsat"]["layers"][s_idx]["blocks"][ab]
@@ -164,7 +166,8 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, g
             blk_params = (vp, ap, {k: params["adapters"][k][ai] for k in ADKEYS})
             blk_state = {k: state["adapters"][k][ai] for k in ADKEYS}
             step = wrap(functools.partial(_paired_step, vmeta=vmeta, ameta=ameta, cfg=cfg,
-                                          kernels=kernels, gelu=gelu, train=train))
+                                          kernels=kernels, int8_attn=int8_attn, gelu=gelu,
+                                          train=train))
             f_v, f_a, a_maps, v_maps, new_st = step(blk_params, blk_state, f_v, f_a, v_drop,
                                                     a_drop)
             for k in ADKEYS:
@@ -172,10 +175,10 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, g
 
         if "downsample" in params["swin"]["layers"][s_idx]:
             f_v = S.patch_merging(params["swin"]["layers"][s_idx]["downsample"], f_v,
-                                  cfg.swin.stage_resolution(s_idx))
+                                  cfg.swin.stage_resolution(s_idx), kernels=kernels)
         if "downsample" in params["htsat"]["layers"][s_idx]:
             f_a = H.patch_merging(params["htsat"]["layers"][s_idx]["downsample"], f_a,
-                                  cfg.htsat.stage_resolution(s_idx))
+                                  cfg.htsat.stage_resolution(s_idx), kernels=kernels)
 
     f_v = layer_norm(params["swin"]["norm"], f_v)
     vis_tokens = f_v

@@ -53,7 +53,7 @@ def block_plan(cfg: SwinV2Config):
     return plan
 
 
-def attn_part(params, x, meta, *, kernels=True):
+def attn_part(params, x, meta, *, kernels=True, int8_attn=False):
     """The spatial-attention half of a block before norm1 and the residual
     (timm's `blk._attn(x)`, which the interleave drives). x: (N, L, C)."""
     H, W = meta["res"]
@@ -61,31 +61,34 @@ def attn_part(params, x, meta, *, kernels=True):
         lambda w, m, nw: window_attention_v2(params["attn"], w, num_heads=meta["heads"],
                                              ws=meta["ws"], mask=m, nW=nw,
                                              pretrained_ws=meta["pretrained_ws"],
-                                             kernels=kernels),
+                                             kernels=kernels, int8_attn=int8_attn),
         x, H=H, W=W, ws=meta["ws"], shift=meta["shift"])
 
 
-def attn_half(params, x, meta, *, kernels=True, drop=None):
+def attn_half(params, x, meta, *, kernels=True, int8_attn=False, drop=None):
     """x + norm1(attn(x)): K2 where it applies, else the plain composition,
     whose residual goes through drop_path with `drop` (mask1, mask2, rate)."""
-    if drop is None and fused_block_eligible(meta["dim"], meta["heads"], False, kernels):
+    if drop is None and fused_block_eligible(meta["dim"], meta["heads"], False, kernels,
+                                             params["attn"]):
         return fused_half_block(params, x, kind="v2", heads=meta["heads"], res=meta["res"],
                                 ws=meta["ws"], shift=meta["shift"],
                                 pretrained_ws=meta["pretrained_ws"])
-    return x + drop_residual(layer_norm(params["norm1"], attn_part(params, x, meta,
-                                                                   kernels=kernels)), drop, 0)
+    attn = attn_part(params, x, meta, kernels=kernels, int8_attn=int8_attn)
+    return x + drop_residual(layer_norm(params["norm1"], attn), drop, 0)
 
 
-def block(params, x, meta, *, kernels=True, gelu="exact", drop=None):
+def block(params, x, meta, *, kernels=True, int8_attn=False, gelu="exact", drop=None):
     """Post-norm V2 block: x += norm1(attn(x)); x += norm2(mlp(x)). `drop`
     (mask1, mask2, rate): drop_path on the two residuals (training)."""
-    x = attn_half(params, x, meta, kernels=kernels, drop=drop)
-    return x + drop_residual(layer_norm(params["norm2"], mlp(params["mlp"], x, gelu)), drop, 1)
+    x = attn_half(params, x, meta, kernels=kernels, int8_attn=int8_attn, drop=drop)
+    y = mlp(params["mlp"], x, gelu, kernels=kernels)
+    return x + drop_residual(layer_norm(params["norm2"], y), drop, 1)
 
 
-def patch_merging(params, x, res):
+def patch_merging(params, x, res, *, kernels=True):
     """V2 patch merging: cat 4 -> Linear(4C, 2C, no bias) -> LayerNorm(2C)."""
-    return layer_norm(params["norm"], linear(params["reduction"], merge_2x2(x, res)))
+    return layer_norm(params["norm"], linear(params["reduction"], merge_2x2(x, res),
+                                             kernels=kernels))
 
 
 def patch_embed_tokens(params, images, cfg: SwinV2Config):

@@ -106,7 +106,15 @@ def patch_embed_init(init: Init, patch, in_chans, embed_dim, norm=True):
 # forward ops
 # ---------------------------------------------------------------------------
 
-def linear(params, x):
+def linear(params, x, *, kernels=True):
+    """x (..., in) -> (..., out). A quantized dict ("kernel_q", from
+    `ops.quant`) runs the int8 path, as K4 when `kernels`; a dict tagged for
+    calibration ("qtag") first hands x to its tag."""
+    if "qtag" in params:
+        params["qtag"](x)
+    if "kernel_q" in params:
+        from .quant import linear_int8
+        return linear_int8(params, x, kernels=kernels)
     y = x @ params["kernel"]
     if "bias" in params:
         y = y + params["bias"]
@@ -130,8 +138,9 @@ def gelu(x, mode: str = "exact"):
     return F.gelu(x, approximate="tanh" if mode == "tanh" else "none")
 
 
-def mlp(params, x, gelu_mode: str = "exact"):
-    return linear(params["fc2"], gelu(linear(params["fc1"], x), gelu_mode))
+def mlp(params, x, gelu_mode: str = "exact", *, kernels=True):
+    h = gelu(linear(params["fc1"], x, kernels=kernels), gelu_mode)
+    return linear(params["fc2"], h, kernels=kernels)
 
 
 def batch_norm(params, state, x, *, train=False, axis=-1, momentum=0.1, eps=1e-5):

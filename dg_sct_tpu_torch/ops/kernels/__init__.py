@@ -1,15 +1,16 @@
 """The port's CUDA kernels: K1 window attention, K2 attention half-block,
-K3 adapter bottleneck. Each module holds the wrapper (kernel on a CUDA
+K3 adapter bottleneck, K4 int8 linear. Each module holds the wrapper (kernel on a CUDA
 tensor, plain version on a CPU tensor), the plain version and the launch
 count."""
 from __future__ import annotations
 
-from . import adapter_bottleneck, block_attention, window_attention
+from . import adapter_bottleneck, block_attention, int8_linear, window_attention
 
 KERNELS = {
     "window_attention": window_attention.KERNEL,
     "block_attention": block_attention.KERNEL,
     "adapter_bottleneck": adapter_bottleneck.KERNEL,
+    "int8_linear": int8_linear.KERNEL,
 }
 
 

@@ -21,7 +21,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
-SOURCES = ("window_attention", "block_attention", "adapter_bottleneck")
+SOURCES = ("window_attention", "block_attention", "adapter_bottleneck", "int8_linear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

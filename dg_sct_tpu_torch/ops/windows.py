@@ -3,8 +3,10 @@
 V1 window attention with a relative-position bias table (HTS-AT) and V2
 scaled-cosine attention with the log-CPB bias (Swin-V2, timm 0.6.12), the
 shifted-window step around them, and the eval attention half-block. With
-`kernels=True` the attention core runs as K1 and an eligible half-block as
-K2 (`ops/kernels/`); with `kernels=False` everything is plain PyTorch.
+`kernels=True` the attention core runs as K1, an eligible half-block as K2
+and a quantized linear as K4 (`ops/kernels/`); with `kernels=False`
+everything is plain PyTorch. `int8_attn` runs the V2 core of a quantized
+Swin-V2 block in int8 (`_attn_core_int8`).
 """
 from __future__ import annotations
 
@@ -92,6 +94,39 @@ def _attn_core(q, k, v, bias, mask, out_dtype, nW=1, *, kernels=True):
     return out.reshape(Bw, N, H * D).to(out_dtype)
 
 
+def _int8_matmul(a, b):
+    """a @ b of integer-valued float32 tensors with int8-range entries. Exact:
+    every partial sum is an integer below 2^24 (asserted from the depth)."""
+    depth = a.shape[-1]
+    assert depth * 127 * 127 < 2 ** 24, f"an int8 product of depth {depth} is not exact in float32"
+    return a @ b
+
+
+def _attn_core_int8(qn, kn, v, logit_scale, bias, mask, out_dtype):
+    """The int8 cosine-attention core of a quantized Swin-V2 block
+    (`dg_sct_tpu/ops/windows.py:133` `_attn_core_int8`), in plain PyTorch.
+    qn/kn (Bw, N, H, D) are L2-normalized, so 1/127 is their exact static
+    scale; the softmax output in [0, 1] takes 1/127 too; v takes a dynamic
+    scale per (window, head, channel). logit_scale (H,) is applied at the
+    dequantize. The two int8 products run as float32 matmuls of integers
+    (`_int8_matmul`). Returns (Bw, N, H*D) in `out_dtype`."""
+    Bw, N, H, D = qn.shape
+    f = lambda t: t.to(torch.float32)
+    qq = torch.clamp(torch.round(f(qn) * 127.0), -127, 127).permute(0, 2, 1, 3)  # (Bw, H, N, D)
+    kq = torch.clamp(torch.round(f(kn) * 127.0), -127, 127).permute(0, 2, 3, 1)  # (Bw, H, D, N)
+    scale = (f(logit_scale) / (127.0 * 127.0)).reshape(1, H, 1, 1)
+    attn = _int8_matmul(qq, kq) * scale + f(bias)[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        attn = (attn.reshape(Bw // nW, nW, H, N, N) + f(mask)[None, :, None]).reshape(Bw, H, N, N)
+    pq = torch.clamp(torch.round(torch.softmax(attn, dim=-1) * 127.0), 0, 127)
+    vf = f(v)
+    vscale = torch.clamp(vf.abs().amax(1, keepdim=True), min=1e-8) / 127.0   # (Bw, 1, H, D)
+    vq = torch.clamp(torch.round(vf / vscale), -127, 127).permute(0, 2, 1, 3)  # (Bw, H, N, D)
+    out = _int8_matmul(pq, vq) * (vscale.permute(0, 2, 1, 3) / 127.0)
+    return out.permute(0, 2, 1, 3).reshape(Bw, N, H * D).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # V1 (HTS-AT): scaled dot product + learned relative-position bias table
 # ---------------------------------------------------------------------------
@@ -112,12 +147,12 @@ def window_attention_v1(params, x, *, num_heads, ws, mask=None, nW=1, kernels=Tr
     """x: (Bw, N, C) windows -> (Bw, N, C)."""
     Bw, N, C = x.shape
     hd = C // num_heads
-    qkv = linear(params["qkv"], x).reshape(Bw, N, 3, num_heads, hd)
+    qkv = linear(params["qkv"], x, kernels=kernels).reshape(Bw, N, 3, num_heads, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q = q * hd ** -0.5
     out = _attn_core(q, k, v, _v1_bias(params, ws, num_heads), mask, x.dtype, nW,
                      kernels=kernels)
-    return linear(params["proj"], out)
+    return linear(params["proj"], out, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -150,19 +185,24 @@ def _v2_qkv_bias(params):
 
 
 def window_attention_v2(params, x, *, num_heads, ws, mask=None, pretrained_ws=0, nW=1,
-                        kernels=True):
-    """Scaled-cosine window attention with the log-CPB bias. x: (Bw, N, C)."""
+                        kernels=True, int8_attn=False):
+    """Scaled-cosine window attention with the log-CPB bias. x: (Bw, N, C).
+    With `int8_attn` and a quantized qkv, the core runs in int8."""
     Bw, N, C = x.shape
     hd = C // num_heads
-    qkv = (linear(params["qkv"], x) + _v2_qkv_bias(params)).reshape(Bw, N, 3, num_heads, hd)
+    qkv = linear(params["qkv"], x, kernels=kernels) + _v2_qkv_bias(params)
+    qkv = qkv.reshape(Bw, N, 3, num_heads, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     qn = q * torch.rsqrt(q.square().sum(-1, keepdim=True) + 1e-12)
     kn = k * torch.rsqrt(k.square().sum(-1, keepdim=True) + 1e-12)
     logit_scale = torch.exp(torch.clamp(params["logit_scale"], max=math.log(1.0 / 0.01)))
-    qn = qn * logit_scale[:, 0, 0][None, None, :, None].to(qn.dtype)
     bias = _v2_bias(params, ws, num_heads, pretrained_ws).to(x.dtype)
-    out = _attn_core(qn, kn, v, bias, mask, x.dtype, nW, kernels=kernels)
-    return linear(params["proj"], out)
+    if int8_attn and "kernel_q" in params["qkv"]:
+        out = _attn_core_int8(qn, kn, v, logit_scale[:, 0, 0], bias, mask, x.dtype)
+    else:
+        qn = qn * logit_scale[:, 0, 0][None, None, :, None].to(qn.dtype)
+        out = _attn_core(qn, kn, v, bias, mask, x.dtype, nW, kernels=kernels)
+    return linear(params["proj"], out, kernels=kernels)
 
 
 def shifted_window_attention(attn_fn, x, *, H, W, ws, shift):
@@ -185,10 +225,14 @@ def shifted_window_attention(attn_fn, x, *, H, W, ws, shift):
 # eval attention half-block: K2 or its plain version
 # ---------------------------------------------------------------------------
 
-def fused_block_eligible(C: int, heads: int, train: bool, kernels: bool) -> bool:
+def fused_block_eligible(C: int, heads: int, train: bool, kernels: bool, attn) -> bool:
     """K2 takes the eval blocks with C <= 768, the rule of the JAX package
-    (`dg_sct_tpu/ops/windows.py:337`), so both packages take the same path."""
-    return kernels and not train and C <= 768 and C % heads == 0
+    (`dg_sct_tpu/ops/windows.py:337`), so both packages take the same path;
+    and only if the block's `attn` params hold an unquantized qkv and proj:
+    the JAX package's K2 cannot take an int8 proj, so its int8 serving runs
+    such blocks on the plain path, and so does the port."""
+    return (kernels and not train and C <= 768 and C % heads == 0
+            and "kernel" in attn["qkv"] and "kernel" in attn["proj"])
 
 
 def fused_half_block(params, x, *, kind, heads, res, ws, shift, pretrained_ws=0):

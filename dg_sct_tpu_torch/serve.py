@@ -32,6 +32,7 @@ from .data.ave import batched_iterator, device_prefetch
 from .device import resolve_device
 from .models import ave
 from .models.interleave import fold_adapters_eval
+from .ops import quant
 from .ops.basic import (GELU_MODES, dequantize_mulaw_u8, normalize_frames_u8,
                         normalize_frames_yuv420)
 from .utils.tree import tree_map
@@ -51,15 +52,22 @@ class AVEInferenceEngine:
     def __init__(self, cfg: AVEModelConfig, params, state, *, batch_size: int = 4,
                  chunk: int = 8, device=None, compute_dtype=torch.bfloat16, prefetch: int = 2,
                  num_workers: int = 8, gelu: Optional[str] = None, stft_bf16: bool = True,
-                 kernels: bool = True, fold_eval: bool = True):
+                 kernels: bool = True, fold_eval: bool = True, int8_towers: bool = False,
+                 int8_adapters: bool = False, act_scales=None, int8_attn: bool = False):
         """`params`/`state` as `models.ave.init_ave_model` or `weights.from_jax`
         give them, float32. `gelu` None is tanh for bf16 and exact otherwise,
         as the JAX engine serves; `stft_bf16` rounds the STFT GEMM's inputs to
         bf16 (float32 sums) when serving bf16. `fold_eval` folds the adapters'
-        BN and gates (exact in eval; K3 needs it). `kernels` and `gelu` hold
-        for this engine only. `predict_clips` groups `chunk` batches of
-        `batch_size` clips; `num_workers` threads decode, and `prefetch`
-        chunks are staged ahead."""
+        BN and gates (exact in eval; K3 needs it). Int8 serving
+        (`ops.quant`, after the fold and the cast): `int8_towers` quantizes
+        the Swin-V2 and HTS-AT linears, `int8_adapters` the adapters' too
+        (and the towers'); `act_scales` ({qid: absmax} from
+        `quant.calibrate_ave` over the same towers) gives static activation
+        scales, None dynamic per-row ones; `int8_attn` runs the quantized
+        Swin-V2 blocks' attention core in int8. `kernels`, `gelu` and the
+        int8 options hold for this engine only. `predict_clips` groups
+        `chunk` batches of `batch_size` clips; `num_workers` threads decode,
+        and `prefetch` chunks are staged ahead."""
         if gelu is None:
             gelu = "tanh" if compute_dtype == torch.bfloat16 else "exact"
         if gelu not in GELU_MODES:
@@ -74,6 +82,11 @@ class AVEInferenceEngine:
         cast = lambda t: t.to(self.device, compute_dtype if t.is_floating_point() else t.dtype)
         self.params = tree_map(cast, params)
         self.state = tree_map(cast, state)
+        if int8_towers or int8_adapters:
+            towers = ("swin", "htsat", "adapters") if int8_adapters else ("swin", "htsat")
+            self.params = quant.quantize_eval_params(self.params, towers=towers,
+                                                     act_scales=act_scales)
+        self.int8_attn = int8_attn
         self.cfg = cfg
         self.B = batch_size
         self.chunk = chunk
@@ -103,7 +116,7 @@ class AVEInferenceEngine:
         uv = None if frames_uv is None else to_dev(frames_uv)
         out = ave.forward(self.params, self.state, self._wave(to_dev(wave)),
                           self._frames(to_dev(frames), uv), self.cfg, kernels=self.kernels,
-                          gelu=self.gelu, device=self.device)
+                          int8_attn=self.int8_attn, gelu=self.gelu, device=self.device)
         return {k: v.float() for k, v in out.items()}
 
     def predict(self, wave, frames):

@@ -179,15 +179,16 @@ def test_k3_plain_matches_pallas(C, g, has_ln1, bias, rows):
 
 
 def test_k2_eligibility_follows_the_jax_rule():
+    attn = {"qkv": {"kernel": None}, "proj": {"kernel": None}}  # an unquantized block
     for C, heads in ((96, 4), (768, 24), (1536, 48), (100, 3)):
         JW.set_fused_block(True)
         try:
             want = JW.fused_block_eligible(C, heads, False)
         finally:
             JW.set_fused_block(False)
-        assert PW.fused_block_eligible(C, heads, False, True) == want
-        assert not PW.fused_block_eligible(C, heads, False, False)
-        assert not PW.fused_block_eligible(C, heads, True, True)
+        assert PW.fused_block_eligible(C, heads, False, True, attn) == want
+        assert not PW.fused_block_eligible(C, heads, False, False, attn)
+        assert not PW.fused_block_eligible(C, heads, True, True, attn)
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +206,12 @@ def _chip_smoke():
 
 def test_every_csrc_kernel_falls_in_its_profile_group():
     """chip_smoke.py sums the profiled device time by kernel group; every
-    __global__ kernel of csrc/ must land in its source's group (K1, K2, K3),
-    never in "other"."""
+    __global__ kernel of csrc/ must land in its source's group (K1, K2, K3,
+    K4), never in "other"."""
     root = Path(__file__).resolve().parents[1]
     smoke = _chip_smoke()
-    want = {"window_attention": "K1", "block_attention": "K2", "adapter_bottleneck": "K3"}
+    want = {"window_attention": "K1", "block_attention": "K2", "adapter_bottleneck": "K3",
+            "int8_linear": "K4"}
     kernel = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)\s*)?"
                         r"(\w+)\s*\(")
     csrc = root / "dg_sct_tpu_torch" / "csrc"
