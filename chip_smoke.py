@@ -18,7 +18,8 @@ Phases, each fatal on failure:
      yardsticks, the card's time alone (device_ms). The float32 checks of K1
      and K2 run after a launch that leaves NaN in shared memory. K3 also at
      shapes off the main path: ragged row tiles, no LN_before, four groups of
-     24 or 48 channels;
+     24 or 48 channels; K1 and K2 also at phase 8's shapes (10 frames a
+     forward), checked in both dtypes, not timed;
   4. drive the full-width AVE eval forward (AVEModelConfig(), random weights
      from seed 0, nonzero adapter gates) through AVEInferenceEngine: B=2 clips
      in bf16, 3 predict requests; check outputs, launch counts K1=2, K2=34,
@@ -62,14 +63,40 @@ Phases, each fatal on failure:
      each of its 430 K4 calls against the plain version on its own input
      (TOL); then one
      forward each of towers only (K4 = 142), dynamic scales and int8_attn
-     (K1 = 10), with launch counts and finite outputs checked.
+     (K1 = 10), with launch counts and finite outputs checked;
+  8. serve the AVS model at full width (AVSModelConfig(): the same towers,
+     48 AVS-variant adapters, TPAVI on 4 stages, the FPN decoder): a state
+     dict synthesized from the key census of the AVS S4 checkpoint goes
+     through `convert_avs_model` (0 unexplained keys) and `from_jax` into a
+     bf16 AVSInferenceEngine (B=2, chunk=2), which streams 7 clips of an
+     on-disk AVSBench tree (PNG frames and masks at 224, .npy waves of 5 x
+     320000) through `stream_masks`: launches 4 x (K1/K2/K3/K4 = 2/34/0/0),
+     masks (7, 5, 224, 224) finite in [0, 1], metas in dataset order; in
+     float32 the engine with kernels against the plain one (launches
+     2/34/0/0 a forward, each K1 and K2 call against the plain version on
+     its own input (TOL); AVS_F32_TOL of the logits' spread, beside the
+     plain path's own move under a 1e-6 relative change of its inputs, and
+     the bound read against faults PLANTED in front of K2, each of which it
+     must catch) and uint8 masks against sigmoid(logits) (0.5/255); clips/s of
+     `stream_masks` over 16 in-memory clips in two wire formats (uint8
+     frames with int16 waves; S4Dataset's float32 items), two rounds each;
+     one profiled forward (cuDNN convolutions and TPAVI's products as their
+     own groups) and its peak memory; `calibrate_avs` on a seeded B=2 batch
+     and an int8_towers engine (launches 34/2/0/142 a forward, drift against
+     bf16); in float32 the int8-towers forward with kernels against the
+     int8 plain one (AVS_INT8_TOL on the mean |delta| over the mean |logit|,
+     and faults planted in front of K1) and each of its 142 K4 and 34 K1
+     calls against the plain version on its own input.
+     The bounds of this phase are checked once every reading is printed.
 It then prints the kernels line (launches from phase 4, K4's from phase 7),
 the card line and, last, the ok line.
 
     python3 chip_smoke.py --only adapter_bottleneck   # phases 1-3 for K3 alone
+    python3 chip_smoke.py --only avs                  # phases 1, 2 and 8
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 to 7; such a run prints no ok line (`--only int8_linear` for K4).
+phases 4 to 8 (`--only int8_linear` for K4); `--only avs` runs phase 8 alone.
+Such a run prints no ok line.
 """
 from __future__ import annotations
 
@@ -189,16 +216,14 @@ def compare(got, ref, dtype):
 FLOAT_ATTN = {"qkv": {"kernel": None}, "proj": {"kernel": None}}  # a block of the bf16 path
 
 
-def kernel_cases(cfg):
-    """(kernel, case, launches per forward): every main-path shape, with the
-    number of calls one forward makes at it; K1 also at the shapes it takes
-    in the blocks where K2 runs (0 calls per forward)."""
-    from dg_sct_tpu_torch.configs import ave_adapter_dims
+def attention_cases(cfg, frames):
+    """{K1 key: calls a forward}, {K2 key: calls a forward} of the towers'
+    blocks at `frames` frames and audio clips a forward; K1 also at the
+    shapes it takes in the blocks where K2 runs (0 calls a forward)."""
     from dg_sct_tpu_torch.models import htsat, swinv2
     from dg_sct_tpu_torch.ops.windows import fused_block_eligible
 
-    frames = BATCH * cfg.num_frames
-    k1, k2, k3 = {}, {}, {}
+    k1, k2 = {}, {}
     for kind, plan in (("v2", swinv2.block_plan(cfg.swin)), ("v1", htsat.block_plan(cfg.htsat))):
         for stage in plan:
             for m in stage:
@@ -215,6 +240,17 @@ def kernel_cases(cfg):
                 if on_k2:
                     key = (kind, frames, H, W, m["dim"], m["heads"], ws, m["shift"])
                     k2[key] = k2.get(key, 0) + 1
+    return k1, k2
+
+
+def kernel_cases(cfg):
+    """(kernel, case, launches per forward): every main-path shape, with the
+    number of calls one forward makes at it."""
+    from dg_sct_tpu_torch.configs import ave_adapter_dims
+
+    frames = BATCH * cfg.num_frames
+    k1, k2 = attention_cases(cfg, frames)
+    k3 = {}
     for (v_dim, v_tok, a_dim, a_tok) in ave_adapter_dims(cfg.swin, cfg.htsat):
         for C, N in ((v_dim, v_tok), (a_dim, a_tok)):
             key = (frames * N, C, 2, C // 16, True)  # (rows, C, groups, go, has_ln1)
@@ -223,6 +259,18 @@ def kernel_cases(cfg):
             + [("block_attention", k, n) for k, n in k2.items()]
             + [("adapter_bottleneck", k, n) for k, n in k3.items()]
             + [("int8_linear", k, n) for k, n in sorted(int8_call_shapes(cfg).items())])
+
+
+def avs_attention_cases():
+    """(kernel, case, launches per AVS forward) of K1 and K2 at the shapes
+    of phase 8's forward (B=2 AVS clips: BATCH * 5 frames); checked in phase
+    3, not timed. K1's cases hold the shapes that int8 towers move onto it."""
+    from dg_sct_tpu_torch.configs import AVSModelConfig
+
+    cfg = AVSModelConfig()
+    k1, k2 = attention_cases(cfg, BATCH * cfg.num_frames)
+    return ([("window_attention", k, n) for k, n in k1.items()]
+            + [("block_attention", k, n) for k, n in k2.items()])
 
 
 INT8_TOWERS = ("swin", "htsat", "adapters")  # int8 serving's headline configuration
@@ -486,12 +534,18 @@ def check_kernels(cfg, only=None):
                         lambda: torch.addmm(bb, xb, wb))
             rows.append(row)
             print("kernel", json.dumps(row), flush=True)
-    if not only or "adapter_bottleneck" in only:
-        for key in K3_EXTRA:  # checks only: no time, no part of the kernels line
-            for dtype in (torch.float32, torch.bfloat16):
-                err = check_case("adapter_bottleneck", key, dtype, gen)[-1]
-                print(f"check adapter_bottleneck {list(key)} {dtype}: max abs err {err:.3e} "
-                      f"(atol/rtol {TOL[dtype]})", flush=True)
+    # checks only, not timed: K3 off the main path, K1 and K2 at phase 8's shapes
+    extra = [("adapter_bottleneck", key, "off the main path") for key in K3_EXTRA]
+    extra += [(name, key, f"AVS path, {n} a forward") for name, key, n in avs_attention_cases()]
+    for name, key, what in extra:
+        if only and name not in only and not ("avs" in only and what.startswith("AVS")):
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            err = check_case(name, key, dtype, gen)[-1]
+            rows.append(dict(name=name, case=list(key), dtype=str(dtype).replace("torch.", ""),
+                             per_forward=0, max_abs_err=err, checked_only=True))
+            print(f"check {name} {list(key)} {dtype} ({what}): max abs err {err:.3e} "
+                  f"(atol/rtol {TOL[dtype]})", flush=True)
     return rows
 
 
@@ -500,7 +554,8 @@ def kernels_line(rows, counts):
     calls (the main path serves bf16), errors over every case and dtype."""
     out = []
     for name, (source, replaces) in SOURCES.items():
-        mine = [r for r in rows if r["name"] == name]
+        checked = [r for r in rows if r["name"] == name]  # errors over every check
+        mine = [r for r in checked if not r.get("checked_only")]
         if not mine:  # not checked in this run (--only)
             continue
         main = [r for r in mine if r["dtype"] == "bfloat16" and r["per_forward"]]
@@ -509,7 +564,7 @@ def kernels_line(rows, counts):
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name],
-            max_abs_err=max(max(r["max_abs_err"], r.get("dynamic_err", 0.0)) for r in mine),
+            max_abs_err=max(max(r["max_abs_err"], r.get("dynamic_err", 0.0)) for r in checked),
             ms=tot("kernel_ms"), device_ms=tot("kernel_device_ms"), plain_ms=tot("plain_ms"),
             bound_ms=tot("bound_ms"),
             bound_by="operations" if tot("ops_ms") >= tot("bytes_ms") else "bytes",
@@ -545,11 +600,15 @@ def profile_forward(eng, wave, frames):
                 "profile")
 
 
-def profile_run(fn, what, tag, host_ops=True):
+def profile_run(fn, what, tag, host_ops=True, op_group=None):
     """`fn()` under torch.profiler; prints `tag:` lines: device busy time and
     the idle share of the span from the first kernel's start to the last
     one's end, time by kernel group, the busiest kernels. `host_ops=False`
-    records device activity only (a train step's host ops number ~10^5)."""
+    records device activity only (a train step's host ops number ~10^5).
+    `op_group(host op)` -> a group name or None moves the kernels a host op
+    launched from their name's group to that one (by the op's own kernel
+    list, so each kernel moves once), and splits "other" by the host op
+    (and its parent) that launched each kernel; returns {group: ms}."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
@@ -559,13 +618,27 @@ def profile_run(fn, what, tag, host_ops=True):
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         print(f"{tag}: the profiler recorded no device time", flush=True)
-        return
+        return {}
     by_group, by_name = {}, {}
     for e in dev:
         us = e.time_range.elapsed_us()
         group = kernel_group(e.name)
         by_group[group] = by_group.get(group, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
+    moved, other_ops = {}, {}
+    for e in prof.events() if op_group else ():
+        if not e.kernels or e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        group = op_group(e)
+        for k in e.kernels:
+            if group:
+                by_group[kernel_group(k.name)] = by_group.get(kernel_group(k.name), 0.0) - k.duration
+                by_group[group] = by_group.get(group, 0.0) + k.duration
+                moved[group] = moved.get(group, 0) + 1
+            elif kernel_group(k.name) == "other":  # "other" by the host op that launched it
+                key = " < ".join(op.name for op in (e, e.cpu_parent) if op is not None)
+                us, n = other_ops.get(key, (0.0, 0))
+                other_ops[key] = (us + k.duration, n + 1)
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, (lo, hi) = 0.0, spans[0]
     for s, t in spans[1:]:
@@ -579,11 +652,15 @@ def profile_run(fn, what, tag, host_ops=True):
                        sorted(by_group.items(), key=lambda kv: -kv[1]))
     print(f"{tag}: {what}: device busy {busy / 1e3:.3f} ms of a "
           f"{span / 1e3:.3f} ms span ({100.0 * (1.0 - busy / span):.1f}% idle), "
-          f"{len(dev)} device events; by group: {groups}", flush=True)
+          f"{len(dev)} device events; by group: {groups}"
+          + "".join(f"; {n} kernels moved to {g}" for g, n in moved.items()), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, us in top[:10] + [kv for kv in top[10:] if kernel_group(kv[0])[0] == "K"]:
         short = name.replace("dgsct::(anonymous namespace)::", "")
         print(f"{tag}:   {us / 1e3:9.3f} ms  {kernel_group(name):5s} {short[:110]}", flush=True)
+    for key, (us, n) in sorted(other_ops.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"{tag}:   other by host op: {us / 1e3:9.3f} ms in {n} kernels  {key}", flush=True)
+    return {g: us / 1e3 for g, us in by_group.items()}
 
 
 def seeded_model(cfg, device="cuda"):
@@ -731,15 +808,19 @@ def import_census_model(cfg):
 class Clips:
     """A map-style dataset of distinct seeded full-width clips in memory, in
     one wire format: int16 wave with uint8 RGB frames, or mu-law wave with
-    YUV420 planes made from the same frames (JFIF, 2x2 chroma means)."""
+    YUV420 planes made from the same frames (JFIF, 2x2 chroma means). Frames
+    are `size` square (the towers' input unless given); `named` adds the
+    (category, video) fields an AVS dataset carries."""
 
-    def __init__(self, n, cfg, seed, yuv420=False):
+    def __init__(self, n, cfg, seed, yuv420=False, size=None, named=False):
         from dg_sct_tpu_torch.ops.basic import encode_mulaw_u8
 
         rs = np.random.RandomState(seed)
-        T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.swin.img_size
+        T, L = cfg.num_frames, cfg.htsat.frontend.clip_samples
+        S = size or cfg.swin.img_size
         self.wave = (np.clip(0.3 * rs.randn(n, T, L), -1, 1) * 32767).astype(np.int16)
         self.frames = rs.randint(0, 256, (n, T, S, S, 3), dtype=np.uint8)
+        self.names = [("synthetic", f"c{i:03d}") for i in range(n)] if named else None
         self.yuv420 = yuv420
         if yuv420:
             self.mulaw = encode_mulaw_u8(self.wave)
@@ -757,12 +838,15 @@ class Clips:
 
     def __getitem__(self, i):
         if self.yuv420:
-            return {"wave": self.mulaw[i], "image_y": self.y[i], "image_uv": self.uv[i]}
-        return {"wave": self.wave[i], "image": self.frames[i]}
+            item = {"wave": self.mulaw[i], "image_y": self.y[i], "image_uv": self.uv[i]}
+        else:
+            item = {"wave": self.wave[i], "image": self.frames[i]}
+        if self.names:
+            item["category"], item["video"] = self.names[i]
+        return item
 
     def bytes_per_forward(self, batch):
-        item = self[0]
-        return batch * sum(v.nbytes for v in item.values())
+        return batch * sum(v.nbytes for v in self[0].values() if isinstance(v, np.ndarray))
 
 
 def check_clips(name, eng, ds, per_call, ref=None):
@@ -1163,17 +1247,16 @@ def spread_err(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
 
 
-def check_int8_calls(qp, fs, wave, frames, cfg, device):
-    """One forward of the quantized tree `qp` with kernels, in which every
-    quantized linear's input also goes through K4 and its plain version
-    side by side (a tag on each, as calibration records): (calls, max abs
-    error). Fatal beyond TOL."""
-    from dg_sct_tpu_torch.models import ave
+def check_int8_calls(qp, towers, forward, what):
+    """One forward (`forward(tree)`, kernels on) of the quantized tree `qp`, in
+    which every quantized linear of `towers` also sends its input through K4
+    and its plain version side by side (a tag on each, as calibration
+    records): (calls, max abs error). Fatal beyond TOL."""
     from dg_sct_tpu_torch.ops import quant
     from dg_sct_tpu_torch.ops.kernels import int8_linear as K4
 
-    towers = quant._ordered_towers(qp, INT8_TOWERS)
-    nodes = quant.eligible_linears(towers)
+    ordered = quant._ordered_towers(qp, towers)
+    nodes = quant.eligible_linears(ordered)
 
     class Check(quant.Recorder):
         def record(self, qid, x):
@@ -1188,19 +1271,19 @@ def check_int8_calls(qp, fs, wave, frames, cfg, device):
 
     check = Check()
     tagged = dict(qp)
-    tagged.update(quant.attach_qtags(towers, recorder=check))
+    tagged.update(quant.attach_qtags(ordered, recorder=check))
     with torch.inference_mode():
-        ave.forward(tagged, fs, wave, frames, cfg, kernels=True, device=device)
+        forward(tagged)
     stats = torch.stack([e for _, e in check.calls]).cpu()
     order = stats[:, 1].argsort(descending=True)[:3].tolist()
     for i in order:
         qid = check.calls[i][0]
-        print(f"int8 f32: K4 call of qid {qid} {tuple(nodes[qid]['kernel_q'].shape)}: max abs "
+        print(f"{what}: K4 call of qid {qid} {tuple(nodes[qid]['kernel_q'].shape)}: max abs "
               f"err {stats[i, 0]:.3e}, error/tolerance {stats[i, 1]:.3e}, non-finite inputs "
               f"{int(stats[i, 2])}", flush=True)
     err, worst = stats[:, 0].max().item(), stats[:, 1].max().item()
     if not worst <= 1.0:
-        raise AssertionError(f"int8 f32: a K4 call of the forward disagrees with the plain "
+        raise AssertionError(f"{what}: a K4 call of the forward disagrees with the plain "
                              f"version ({err:.3e})")
     return len(check.calls), err
 
@@ -1307,7 +1390,10 @@ def run_int8(cfg, device="cuda"):
         flt = ave.forward(fp, fs, wave, frames, cfg, kernels=False, device=device)
     if counts != INT8_PER_FORWARD:
         raise AssertionError(f"int8 f32: launches {counts}, expected {INT8_PER_FORWARD}")
-    calls, err = check_int8_calls(qp, fs, wave, frames, cfg, device)
+    calls, err = check_int8_calls(
+        qp, INT8_TOWERS,
+        lambda t: ave.forward(t, fs, wave, frames, cfg, kernels=True, device=device),
+        "int8 f32")
     print(f"int8 f32: each of the {calls} K4 calls of a forward against the plain version on "
           f"its own input: max abs err {err:.3e} (atol/rtol {TOL[torch.float32]})", flush=True)
     bad = []
@@ -1341,10 +1427,402 @@ def run_int8(cfg, device="cuda"):
     return int8_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: AVS serving at full width
+# ---------------------------------------------------------------------------
+
+AVS_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_avs_s4.json"
+AVS_PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 0,
+                   "int8_linear": 0}  # AVS adapters stay off K3, as in the JAX package
+AVS_INT8_PER_FORWARD = {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 0,
+                        "int8_linear": 142}
+AVS_STREAM_CLIPS = 16
+AVS_INT8_TOWERS = ("swin", "htsat")  # what the AVS engine's int8_towers quantizes
+# f32 engine with kernels against the plain one, max |delta logit| over max
+# |logit|: above the plain path's own move under a 1e-6 relative change of
+# its inputs and above the sound kernels' readings (printed beside), below
+# the readings of the faults PLANTED in front of K2.
+AVS_F32_TOL = 1e-3
+# the f32 int8-towers forward (B=2 clips) with kernels against the plain one,
+# mean |delta logit| over mean |logit| (its max moves with the int8 roundings
+# that a 1e-6 change of the inputs flips, as far as a planted fault moves it):
+# above the sound kernels' reading and the plain path's move under the nudge,
+# below the faults planted in front of K1, which runs the 32 quantized blocks'
+# attention (readings in PERF.md, section 6, PR 9)
+AVS_INT8_TOL = 1.25e-2
+MASK_U8_TOL = 0.5 / 255 + 1e-6
+# known faults put in front of a kernel, each read against a bound above:
+# the relative-position bias as a float32 kernel that staged it in bf16
+# would see it, and as an off-by-one in its key index would
+PLANTED = {"bias rounded to bf16": lambda b: b.to(torch.bfloat16).to(b.dtype),
+           "bias rolled by one key": lambda b: b.roll(1, -1).contiguous()}
+
+
+def avs_op_group(e):
+    """The AVS profile's host-op groups: every kernel under a convolution
+    (cuDNN), and TPAVI's two products, the forward's only direct torch.bmm
+    calls (einsum's and matmul's bmm run under those ops)."""
+    op = e
+    while op is not None:
+        if op.name == "aten::convolution":
+            return "cuDNN conv"
+        op = op.cpu_parent
+    if e.name == "aten::bmm" and e.cpu_parent is None:
+        return "TPAVI products"
+    return None
+
+
+def write_avs_tree(root, videos, cfg, seed=0):
+    """An AVSBench tree: T PNG frames and binary masks (mask_size^2) a video
+    and a float32 wave of T x clip_samples."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    T, S, L = cfg.num_frames, cfg.mask_size, cfg.htsat.frontend.clip_samples
+    (root / "audio_wav").mkdir(parents=True)
+    for cat, vid in videos:
+        fdir = root / "visual_frames" / "test" / cat / vid
+        mdir = root / "gt_masks" / "test" / cat / vid
+        fdir.mkdir(parents=True)
+        mdir.mkdir(parents=True)
+        for t in range(T):
+            Image.fromarray(rs.randint(0, 256, (S, S, 3), dtype=np.uint8)).save(
+                fdir / f"{vid}_{t}.png")
+            Image.fromarray(((rs.rand(S, S) > 0.5) * 255).astype(np.uint8)).save(
+                mdir / f"{vid}_{t}.png")
+        np.save(root / "audio_wav" / f"{vid}.npy",
+                np.clip(0.3 * rs.randn(T * L), -1, 1).astype(np.float32))
+    return root
+
+
+class Nudged:
+    """A dataset's items with float image and wave scaled by (1 + rel * N(0, 1))."""
+
+    def __init__(self, ds, rel, seed):
+        self.ds, self.rel, self.seed = ds, rel, seed
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        item = dict(self.ds[i])
+        rs = np.random.RandomState(self.seed + i)
+        for k in ("image", "wave"):
+            v = item[k].astype(np.float32)
+            item[k] = (v * (1.0 + self.rel * rs.randn(*v.shape))).astype(np.float32)
+        return item
+
+
+class intercept:
+    """Within the block, every call of K1 or K2 (`kernel`) from the model's
+    attention (`ops.windows`) goes through `wrap(kernel's wrapper)`."""
+
+    ATTR = {"window_attention": "window_attention", "block_attention": "fused_attn_half_block"}
+
+    def __init__(self, kernel, wrap):
+        from dg_sct_tpu_torch.ops import windows
+
+        self.mod, self.attr, self.wrap = windows, self.ATTR[kernel], wrap
+
+    def __enter__(self):
+        self.real = getattr(self.mod, self.attr)
+        setattr(self.mod, self.attr, self.wrap(self.real))
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.real)
+
+
+def planted(kernel, fault):
+    """K1 or K2 handed its relative-position bias through `fault` (a value of
+    PLANTED); the kernel itself still launches."""
+    pos = {"window_attention": 3, "block_attention": 5}[kernel]
+
+    def wrap(real):
+        def faulty(*args, **kw):
+            args = list(args)
+            args[pos] = fault(args[pos])
+            return real(*args, **kw)
+        return faulty
+
+    return intercept(kernel, wrap)
+
+
+def side_by_side(kernel, calls):
+    """Each call of K1 or K2 also runs the plain version on the same inputs;
+    (max abs err, error/tolerance) of each goes to `calls`, on the card."""
+    from dg_sct_tpu_torch.ops.kernels import block_attention as K2
+    from dg_sct_tpu_torch.ops.kernels import window_attention as K1
+
+    plain = {"window_attention": K1.window_attention_plain,
+             "block_attention": K2.fused_attn_half_block_plain}[kernel]
+
+    def wrap(real):
+        def paired(*args, **kw):
+            got = real(*args, **kw)
+            ref = plain(*args, **kw).float()
+            atol, rtol = TOL[got.dtype]
+            diff = torch.nan_to_num((got.float() - ref).abs(), nan=math.inf)
+            calls.append(torch.stack([diff.max(), (diff / (atol + rtol * ref.abs())).max()]))
+            return got
+        return paired
+
+    return intercept(kernel, wrap)
+
+
+def report_calls(what, kernel, calls, bad):
+    """Print and check what `side_by_side` collected."""
+    if not calls:
+        bad.append(f"{what}: no {kernel} call to check")
+        return
+    stats = torch.stack(calls).cpu()
+    err, worst = stats[:, 0].max().item(), stats[:, 1].max().item()
+    print(f"{what}: each of the {len(calls)} {kernel} calls against the plain version on its "
+          f"own input: max abs err {err:.3e}, error/tolerance {worst:.3e} (atol/rtol "
+          f"{TOL[torch.float32]})", flush=True)
+    if not worst <= 1.0:
+        bad.append(f"{what}: a {kernel} call disagrees with the plain version ({err:.3e})")
+
+
+def mean_err(got, ref):
+    """mean |got - ref| over mean |ref|."""
+    return float(np.abs(got - ref).mean() / max(np.abs(ref).mean(), 1e-12))
+
+
+def read_planted(kernel, run, ref, bound, what, bad, stat=spread_err):
+    """`run()` under each PLANTED fault in front of `kernel`, read against
+    `ref` by `stat`; a reading at or below `bound` goes to `bad` (the bound
+    would pass that fault)."""
+    for name, fault in PLANTED.items():
+        with planted(kernel, fault):
+            out = run()
+        err = stat(out, ref)
+        print(f"{what}: planted fault, {kernel} {name}: {stat.__name__} {err:.3e} (bound "
+              f"{bound:g}, must be above it); spread_err {spread_err(out, ref):.3e}, mean_err "
+              f"{mean_err(out, ref):.3e}", flush=True)
+        if not err > bound:
+            bad.append(f"{what}: the bound passes a planted fault ({kernel}, {name}: {err:.3e})")
+
+
+def stream_all(eng, ds):
+    """stream_masks over the whole dataset -> (masks, metas, launch counts)."""
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = list(eng.stream_masks(ds))
+    return (np.concatenate([m for m, _ in out]), [x for _, row in out for x in row],
+            launch_counts())
+
+
+def import_avs_census_model(cfg):
+    """The AVS S4 census state dict through the port's import path:
+    converter, key census (0 unexplained), `from_jax` onto the card."""
+    from dg_sct_tpu_torch.utils import torch_convert as TC
+    from dg_sct_tpu_torch.weights import from_jax
+
+    t0 = time.perf_counter()
+    sd = TC.track(census_state_dict(AVS_CENSUS))
+    params, state, pvt = TC.convert_avs_model(sd)
+    report = TC.census_report(sd, TC.AVS_CKPT_IGNORED_PATTERNS)
+    if report["unexplained"] or pvt is None:
+        raise AssertionError(f"avs census: unexplained keys {report['unexplained'][:10]}")
+    params, state = from_jax(params, state, cfg, device="cuda")
+    print(f"avs import: {len(sd)} keys of {AVS_CENSUS.name}: {len(report['consumed'])} "
+          f"consumed (PVT-v2-b5 tower converted, bypassed), {len(report['ignored'])} ignored, "
+          f"0 unexplained; on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    return params, state
+
+
+def run_avs(device="cuda"):
+    """Phase 8: the census-built full-width AVS model served through
+    `stream_masks` from an on-disk tree (B=2, chunk=2, bf16), the float32
+    engine with kernels against the plain one, clips/s in two wire formats,
+    a profiled forward, and int8 towers (in float32 too, each K4 call held
+    against its plain version)."""
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import AVSModelConfig
+    from dg_sct_tpu_torch.data.avs import S4Dataset
+    from dg_sct_tpu_torch.models import avs
+    from dg_sct_tpu_torch.models.interleave import fold_adapters_eval
+    from dg_sct_tpu_torch.ops import quant
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.serve import AVSInferenceEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = AVSModelConfig()
+    params, state = import_avs_census_model(cfg)
+    eng = AVSInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device)
+    T, S = cfg.num_frames, cfg.mask_size
+    forwards = -(-CLIPS // BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_avs_") as tmp:
+        videos = [(f"cat{i % 3}", f"v{i:03d}") for i in range(CLIPS)]
+        root = write_avs_tree(Path(tmp), videos, cfg)
+        ds = S4Dataset(str(root), "test", mask_num=T, img_size=S, num_frames=T,
+                       segment_samples=cfg.htsat.frontend.clip_samples)
+        disk = [ds[i] for i in range(len(ds))]  # decoded once; the checks below reuse them
+    stream_all(eng, disk)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    masks, metas, counts = stream_all(eng, disk)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * forwards for k, v in AVS_PER_FORWARD.items()}
+    if counts != want:
+        raise AssertionError(f"avs: launch counts {counts}, expected {want}")
+    if masks.shape != (CLIPS, T, S, S) or not np.isfinite(masks).all():
+        raise AssertionError(f"avs: masks {masks.shape} or non-finite")
+    if masks.min() < 0.0 or masks.max() > 1.0:
+        raise AssertionError("avs: mask probabilities outside [0, 1]")
+    if metas != sorted(videos):
+        raise AssertionError(f"avs: metas {metas[:3]}... not in dataset order")
+    print(f"avs serve: {CLIPS} clips from disk (PNG frames {S}x{S}, .npy waves {T}x"
+          f"{cfg.htsat.frontend.clip_samples}) through stream_masks in {dt:.3f} s (B={BATCH}, "
+          f"chunk 2, bf16): masks {masks.shape} finite in [{masks.min():.4f}, {masks.max():.4f}], "
+          f"mean {masks.mean():.4f}; metas in dataset order; launches {counts} ({forwards} "
+          f"forwards); peak memory {peak / 2**30:.3f} GiB; card "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # float32: the engine with kernels against the plain one on the same clips
+    bad = []  # bound checks, fatal at the end of the phase once every reading is printed
+    f32 = dict(batch_size=BATCH, chunk=2, device=device, compute_dtype=torch.float32)
+    plain = AVSInferenceEngine(cfg, params, state, kernels=False, mask_u8=False, **f32)
+    kern = AVSInferenceEngine(cfg, params, state, mask_u8=False, **f32)
+    ref, _, _ = stream_all(plain, disk)
+    k1_calls, k2_calls = [], []
+    with side_by_side("window_attention", k1_calls), side_by_side("block_attention", k2_calls):
+        got, _, counts = stream_all(kern, disk)
+    if counts != want:
+        raise AssertionError(f"avs f32: launch counts {counts}, expected {want}")
+    report_calls("avs f32", "window_attention", k1_calls, bad)
+    report_calls("avs f32", "block_attention", k2_calls, bad)
+    near, _, _ = stream_all(plain, Nudged(disk, INT8_NUDGE, seed=21))
+    err, sens = spread_err(got, ref), spread_err(near, ref)
+    print(f"avs f32: kernels vs plain max |delta logit| / max |logit| {err:.3e} (bound "
+          f"{AVS_F32_TOL:g}), max abs diff {np.abs(got - ref).max():.3e}, max |logit| "
+          f"{np.abs(ref).max():.3e}; the plain path moves {sens:.3e} with frames and wave "
+          f"changed by {INT8_NUDGE:g} (relative); launches {counts}", flush=True)
+    if not np.isfinite(got).all() or err > AVS_F32_TOL:
+        bad.append(f"avs f32: kernels and plain path disagree ({err:.3e})")
+    read_planted("block_attention", lambda: stream_all(kern, disk)[0], ref, AVS_F32_TOL,
+                 "avs f32", bad)
+    u8, _, _ = stream_all(AVSInferenceEngine(cfg, params, state, **f32), disk)
+    u8_err = np.abs(u8 - 1.0 / (1.0 + np.exp(-got.astype(np.float64)))).max()
+    print(f"avs f32: mask_u8 against sigmoid(logits) max abs diff {u8_err:.6e} (bound "
+          f"{MASK_U8_TOL:.6e})", flush=True)
+    if u8_err > MASK_U8_TOL:
+        bad.append(f"avs: mask_u8 off sigmoid(logits) by {u8_err:.3e}")
+    del plain, kern, ref, got, near, u8
+
+    # clips/s in two wire formats, and a profiled forward
+    clips = Clips(AVS_STREAM_CLIPS, cfg, seed=13, size=S, named=True)
+    s4 = [disk[i % CLIPS] for i in range(AVS_STREAM_CLIPS)]  # S4Dataset's items, in memory
+    formats = (("uint8 frames, int16 wave", clips),
+               ("S4Dataset's float32 normalized frames and float32 wave", s4))
+    for fmt, data in formats:
+        staged = BATCH * sum(data[0][k].nbytes for k in ("wave", "image"))
+        for rnd in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream_all(eng, data)
+            dt = time.perf_counter() - t0
+            print(f"avs stream: {fmt} ({staged / 1e6:.3f} MB host to device a forward): run "
+                  f"{rnd}: {AVS_STREAM_CLIPS} clips in {dt:.3f} s = {AVS_STREAM_CLIPS / dt:.3f} "
+                  f"clips/s (B={BATCH}, chunk 2, bf16, uint8 masks)", flush=True)
+    one = clips[0]
+    wave = np.stack([one["wave"]] * BATCH)
+    frames = np.stack([one["image"]] * BATCH)
+    eng.forward_batch(wave, frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profile_run(lambda: eng.forward_batch(wave, frames), f"one AVS forward of {BATCH} clips",
+                "avs profile", op_group=avs_op_group)
+    print(f"avs profile: peak memory of the profiled forward "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    # int8 towers with scales calibrated on a seeded batch
+    rs = np.random.RandomState(7)
+    cw = torch.as_tensor((rs.randn(BATCH, T, cfg.htsat.frontend.clip_samples) * 0.1).astype(
+        np.float32), device=device).to(torch.bfloat16)
+    ci = torch.as_tensor(rs.rand(BATCH, T, S, S, 3).astype(np.float32), device=device).to(
+        torch.bfloat16)
+    t0 = time.perf_counter()
+    scales = quant.calibrate_avs(eng.params, eng.state, eng.cfg, cw, ci, gelu=eng.gelu,
+                                 device=device)
+    print(f"avs int8: calibrated {len(scales)} activation scales in "
+          f"{time.perf_counter() - t0:.3f} s (one plain bf16 forward of {BATCH} clips)",
+          flush=True)
+    del eng
+    q8 = AVSInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device,
+                            int8_towers=True, act_scales=scales)
+    q_masks, _, counts = stream_all(q8, disk)
+    want = {k: v * forwards for k, v in AVS_INT8_PER_FORWARD.items()}
+    if counts != want or not np.isfinite(q_masks).all():
+        raise AssertionError(f"avs int8: launches {counts} (expected {want}) or non-finite")
+    agree = float(((q_masks > 0.5) == (masks > 0.5)).mean())
+    print(f"avs int8: launches {counts} ({forwards} forwards); drift against bf16 over "
+          f"{CLIPS} clips: max |delta prob| {np.abs(q_masks - masks).max():.4f}, mean "
+          f"{np.abs(q_masks - masks).mean():.5f}; mask pixels agreeing at 0.5: "
+          f"{100.0 * agree:.3f}%", flush=True)
+    del q8
+
+    # float32: the int8-towers forward with kernels against the int8 plain one
+    fp, fs = fold_adapters_eval(params, state, cfg)
+    qp = quant.quantize_eval_params(fp, towers=AVS_INT8_TOWERS, act_scales=scales)
+    del params, state
+    frames = torch.as_tensor(np.stack([d["image"] for d in disk[:BATCH]]), device=device)
+    wave = torch.as_tensor(np.stack([d["wave"] for d in disk[:BATCH]]), device=device)
+    gen = torch.Generator(device).manual_seed(3)
+    nudge = lambda t: t * (1.0 + INT8_NUDGE * torch.randn(t.shape, device=device, generator=gen))
+
+    def fwd(p, w, f, kernels):
+        with torch.inference_mode():
+            out = avs.forward(p, fs, f, w, cfg, kernels=kernels, device=device)
+        return out["pred"].float().cpu().numpy()
+
+    reset_launch_counts()
+    k1_calls = []
+    with side_by_side("window_attention", k1_calls):
+        got = fwd(qp, wave, frames, True)
+    counts = launch_counts()
+    report_calls("avs int8 f32", "window_attention", k1_calls, bad)
+    if counts != AVS_INT8_PER_FORWARD:
+        raise AssertionError(f"avs int8 f32: launches {counts}, expected {AVS_INT8_PER_FORWARD}")
+    ref = fwd(qp, wave, frames, False)
+    near = [fwd(qp, nudge(wave), nudge(frames), False) for _ in range(2)]
+    flt = fwd(fp, wave, frames, False)
+    calls, kerr = check_int8_calls(
+        qp, AVS_INT8_TOWERS,
+        lambda t: avs.forward(t, fs, frames, wave, cfg, kernels=True, device=device),
+        "avs int8 f32")
+    print(f"avs int8 f32: each of the {calls} K4 calls of a forward against the plain version "
+          f"on its own input: max abs err {kerr:.3e} (atol/rtol {TOL[torch.float32]})",
+          flush=True)
+    err = mean_err(got, ref)
+    print(f"avs int8 f32: {BATCH} clips, kernels vs plain mean |delta logit| / mean |logit| "
+          f"{err:.3e} (bound {AVS_INT8_TOL:g}; max |delta| / max |logit| "
+          f"{spread_err(got, ref):.3e}); the plain path moves "
+          f"{', '.join(f'{mean_err(n, ref):.3e} ({spread_err(n, ref):.3e})' for n in near)} "
+          f"with wave and frames changed by {INT8_NUDGE:g} (relative, two draws); int8 "
+          f"against float (plain, f32) {mean_err(ref, flt):.3e} "
+          f"({spread_err(ref, flt):.3e}); launches {counts}", flush=True)
+    if not np.isfinite(got).all() or err > AVS_INT8_TOL:
+        bad.append(f"avs int8 f32: kernels and plain path disagree ({err:.3e})")
+    read_planted("window_attention", lambda: fwd(qp, wave, frames, True), ref, AVS_INT8_TOL,
+                 "avs int8 f32", bad, stat=mean_err)
+    del fp, fs, qp
+    torch.cuda.empty_cache()
+    print(f"avs: phase 8 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", action="append", choices=sorted(SOURCES),
-                    help="check and time only this kernel (repeatable); skips the model")
+    ap.add_argument("--only", action="append", choices=sorted(SOURCES) + ["avs"],
+                    help="check and time only this kernel (repeatable), or run only phase "
+                         "8 (avs); skips the other phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1374,9 +1852,11 @@ def main() -> int:
     cfg = AVEModelConfig()
     rows = check_kernels(cfg, args.only)
     if args.only:
+        if "avs" in args.only:
+            run_avs()
         print(json.dumps(kernels_line(rows, {name: None for name in SOURCES})))
         print(card)
-        print(f"partial run ({', '.join(args.only)}): no model, no ok line", flush=True)
+        print(f"partial run ({', '.join(args.only)}): no ok line", flush=True)
         return 0
     counts = run_model(cfg)
     run_serving(cfg)
@@ -1387,6 +1867,7 @@ def main() -> int:
     int8_counts = run_int8(cfg)
     print(f"int8: phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
     counts["int8_linear"] = int8_counts["int8_linear"]  # K4's main path is phase 7
+    run_avs()
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
-"""Immutable configuration dataclasses of the AVE model and its training.
+"""Immutable configuration dataclasses of the AVE and AVS models and of AVE
+training.
 
-A copy of the AVE part of `dg_sct_tpu/configs.py` with torch dtypes: the
+A copy of the AVE and AVS parts of `dg_sct_tpu/configs.py` with torch dtypes: the
 field names, defaults and the two static layout helpers are the same, so a
 configuration means the same model in both packages.
 """
@@ -159,6 +160,33 @@ class AVEModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AVSModelConfig:
+    """AVS segmentation model (DG-SCT's `Pred_endecoder`): the same towers
+    and interleave, 5 frames of 224x224 a clip resized to 192 on the
+    device, per-stage taps to `channel`, a 4-scale temporal head, TPAVI on
+    `tpavi_stages` and an FPN decoder to (mask_size, mask_size) logits.
+    AVS-variant adapters without BN; the visual ones (`adapter_vis`) keep
+    their gate, the audio ones have none."""
+    swin: SwinV2Config = dataclasses.field(default_factory=SwinV2Config)
+    htsat: HTSATConfig = dataclasses.field(default_factory=HTSATConfig)
+    adapter: AdapterConfig = dataclasses.field(
+        default_factory=lambda: AdapterConfig(num_tokens=32, use_bn=False,
+                                              use_gate=False, avs_variant=True))
+    adapter_vis: AdapterConfig = dataclasses.field(
+        default_factory=lambda: AdapterConfig(num_tokens=32, use_bn=False,
+                                              use_gate=True, avs_variant=True))
+    num_frames: int = 5
+    channel: int = 256
+    mask_size: int = 224
+    tpavi_stages: tuple = (0, 1, 2, 3)
+    tpavi_vv_flag: bool = False
+    tpavi_va_flag: bool = True
+    # the decoder's grid per stage (PVT-v2's resolutions at a 224 input)
+    scale_sizes: tuple = (56, 28, 14, 7)
+    compute_dtype: Any = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """AVE training recipe (`DG-SCT/AVE/main_trans.py` and `train.sh`): batch
     8, gradients accumulated over 2 mini-steps, Adam at lr 5e-4, StepLR
@@ -173,6 +201,12 @@ class TrainConfig:
     early_stop: int = 10
     seed: int = 43
     mixup_alpha: float = 0.5
+
+
+def vis_adapter_cfg(cfg) -> AdapterConfig:
+    """The visual adapters' options: `adapter_vis` where the model has one
+    (AVS), else the shared `adapter`."""
+    return getattr(cfg, "adapter_vis", None) or cfg.adapter
 
 
 def ave_paired_layout(swin: SwinV2Config, htsat: HTSATConfig):

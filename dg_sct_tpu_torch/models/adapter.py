@@ -1,13 +1,17 @@
-"""DG-SCT cross-modal prompt adapter (`VisualAdapter`), AVE variant.
+"""DG-SCT cross-modal prompt adapter (`VisualAdapter`), AVE and AVS variants.
 
 Tokens stay in (B, N, C) layout and every 1x1 conv is a matmul. Stages:
   1. resample the other modality's tokens to (N, C): token map + channel map,
-     in whichever order costs fewer FLOPs (an exact reorder);
+     in whichever order costs fewer FLOPs (an exact reorder); the AVS
+     variant aligns channels first, then resizes the tokens bicubically on
+     the sqrt(M) -> sqrt(N) grid (its token map is dead weight);
   2. latent-token two-hop cross attention, gated by `gate_av`;
   3. channel attention (query: the other modality's mean token);
   4. spatial attention; its softmax(tanh) map is also the tower's pooling map;
   5. LN -> grouped bottleneck down/BN/ReLU/up/BN -> LN -> gate. After
-     `fold_eval` this stage runs as K3 when kernels are on.
+     `fold_eval` this stage runs as K3 when kernels are on. The AVS variant
+     has no LN before, gates before the last LN and never runs K3, as the
+     JAX package routes it.
 Every 2-D linear of stages 1-4 goes through `ops.basic.linear`, so a tree
 quantized by `ops.quant` runs them in int8 (K4 when kernels are on).
 Only stage 5's output is the residual added to the tower stream.
@@ -19,6 +23,7 @@ import functools
 import torch
 
 from ..configs import AdapterConfig
+from ..ops import dsp
 from ..ops.basic import (Init, batch_norm, batch_norm_init, grouped_linear,
                          grouped_linear_init, layer_norm, layer_norm_init, linear,
                          linear_init)
@@ -106,15 +111,17 @@ def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=
     Returns (residual (B, N, C), spatial maps (B, 1, N), new state); in
     training bn1 and bn2 normalize with the batch's statistics and the new
     state holds their updated running stats."""
-    if cfg.avs_variant:
-        raise NotImplementedError("the AVS adapter variant is not ported yet "
-                                  "(ROADMAP.md, queue 1: AVS family)")
     B, N, C = x.shape
     M, D = other.shape[1], other.shape[2]
 
     # ---- stage 1: resample prompts to (B, N, C), cheaper order first ------------
     lin = functools.partial(linear, kernels=kernels)
-    if M * N * D + N * D * C <= M * D * C + M * N * C:
+    if cfg.avs_variant:
+        s_in, s_out = int(M ** 0.5), int(N ** 0.5)
+        aligned = lin(params["chan_align"], other).reshape(B, s_in, s_in, C)
+        prompts = dsp.resize_2d(aligned, s_out, s_out, kernel="cubic",
+                                align_corners=False).reshape(B, N, C)
+    elif M * N * D + N * D * C <= M * D * C + M * N * C:
         prompts = lin(params["chan_align"],
                       _token_linear(params["token_resample"], other, kernels=kernels))
     else:
@@ -152,9 +159,10 @@ def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=
 
     # ---- stage 5: bottleneck --------------------------------------------------------
     folded = "bn1" not in params and "bn2" not in params and "gate" not in params
-    if kernels and not train and folded and cfg.is_post_layernorm:
+    if kernels and not train and folded and cfg.is_post_layernorm and not cfg.avs_variant:
         return fused_bottleneck(params, x, has_ln1=cfg.is_before_layernorm), sp_maps, state
-    z = layer_norm(params["ln_before"], x) if cfg.is_before_layernorm else x
+    ln_before = cfg.is_before_layernorm and not cfg.avs_variant
+    z = layer_norm(params["ln_before"], x) if ln_before else x
     new_state = dict(state)
     h = grouped_linear(params["down"], z)
     if cfg.use_bn and "bn1" in params:
@@ -163,8 +171,11 @@ def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=
     if cfg.use_bn and "bn2" in params:
         out, new_state["bn2"] = batch_norm(params["bn2"], state["bn2"], out, train=train,
                                            axis=-1)
+    gate = cfg.use_gate and "gate" in params
+    if gate and cfg.avs_variant:
+        out = params["gate"] * out
     if cfg.is_post_layernorm:
         out = layer_norm(params["ln_post"], out)
-    if cfg.use_gate and "gate" in params:
+    if gate and not cfg.avs_variant:
         out = params["gate"] * out
     return out, sp_maps, new_state

@@ -12,6 +12,8 @@ DG-SCT adapters between every paired block. Per paired block:
 
 Unpaired visual blocks run the plain V2 block; stage ends merge patches in
 both towers. The last p2 spatial maps pool each tower's final tokens. The
+audio adapters take `cfg.adapter`, the visual ones `cfg.adapter_vis` where
+the model has one (AVS), else `cfg.adapter`. The
 blocks run unrolled, in order. In training the tower residuals (never the
 adapters') pass through drop_path, and each paired step and each plain
 visual block is checkpointed under a remat policy.
@@ -23,13 +25,18 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from ..configs import AVEModelConfig, ave_adapter_dims, ave_paired_layout
+from ..configs import AVEModelConfig, ave_adapter_dims, ave_paired_layout, vis_adapter_cfg
 from ..ops.basic import Init, drop_path_mask, drop_residual, layer_norm, mlp
 from . import adapter as A
 from . import htsat as H
 from . import swinv2 as S
 
 ADKEYS = ("a_p1", "v_p1", "a_p2", "v_p2")
+
+
+def _adapter_cfg(cfg, key):
+    """The options of the adapters under `key` (an ADKEYS entry)."""
+    return cfg.adapter if key.startswith("a_") else vis_adapter_cfg(cfg)
 
 
 def init_adapters(init: Init, cfg: AVEModelConfig):
@@ -44,7 +51,7 @@ def init_adapters(init: Init, cfg: AVEModelConfig):
             state[name].append(s)
         for name in ("v_p1", "v_p2"):
             p, s = A.init_adapter(init, dim=v_dim, other_dim=a_dim, num_tokens_self=v_tok,
-                                  num_tokens_other=a_tok, cfg=cfg.adapter)
+                                  num_tokens_other=a_tok, cfg=vis_adapter_cfg(cfg))
             params[name].append(p)
             state[name].append(s)
     return params, state
@@ -57,7 +64,7 @@ def fold_adapters_eval(params, state, cfg: AVEModelConfig):
     s["adapters"] = {k: [] for k in ADKEYS}
     for k in ADKEYS:
         for ap, ast in zip(params["adapters"][k], state["adapters"][k]):
-            fp, fs = A.fold_eval(ap, ast, cfg.adapter)
+            fp, fs = A.fold_eval(ap, ast, _adapter_cfg(cfg, k))
             p["adapters"][k].append(fp)
             s["adapters"][k].append(fs)
     return p, s
@@ -93,11 +100,11 @@ def _paired_step(blk_params, blk_state, f_v, f_a, v_drop, a_drop, vmeta, ameta, 
     adapter states). `v_drop`/`a_drop`: (mask1, mask2, rate) of each tower's
     drop_path, or None; the adapter residuals are never dropped."""
     vp, ap, ad = blk_params
-    acfg = cfg.adapter
+    acfg, vcfg = cfg.adapter, vis_adapter_cfg(cfg)
     new_st = {}
     a_res, _, new_st["a_p1"] = A.adapter(ad["a_p1"], blk_state["a_p1"], f_a, f_v, acfg,
                                          kernels=kernels, train=train)
-    v_res, _, new_st["v_p1"] = A.adapter(ad["v_p1"], blk_state["v_p1"], f_v, f_a, acfg,
+    v_res, _, new_st["v_p1"] = A.adapter(ad["v_p1"], blk_state["v_p1"], f_v, f_a, vcfg,
                                          kernels=kernels, train=train)
     f_v = S.attn_half(vp, f_v, vmeta, kernels=kernels, int8_attn=int8_attn, drop=v_drop) + v_res
     f_a = H.block(ap, f_a, dim=ameta["dim"], heads=ameta["heads"], res=ameta["res"],
@@ -105,7 +112,7 @@ def _paired_step(blk_params, blk_state, f_v, f_a, v_drop, a_drop, vmeta, ameta, 
                   drop=a_drop) + a_res
     a_res, a_maps, new_st["a_p2"] = A.adapter(ad["a_p2"], blk_state["a_p2"], f_a, f_v, acfg,
                                               kernels=kernels, train=train)
-    v_res, v_maps, new_st["v_p2"] = A.adapter(ad["v_p2"], blk_state["v_p2"], f_v, f_a, acfg,
+    v_res, v_maps, new_st["v_p2"] = A.adapter(ad["v_p2"], blk_state["v_p2"], f_v, f_a, vcfg,
                                               kernels=kernels, train=train)
     y = mlp(vp["mlp"], f_v, gelu, kernels=kernels)
     f_v = f_v + drop_residual(layer_norm(vp["norm2"], y), v_drop, 1) + v_res
@@ -127,10 +134,13 @@ def _drop_masks(gen, n, rate, device):
 
 
 def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, int8_attn=False,
-            gelu="exact", train=False, gen=None, mixup_lambda=None, remat_policy="full"):
+            gelu="exact", train=False, gen=None, mixup_lambda=None, remat_policy="full",
+            return_stage_taps=False):
     """wave: (N, L) flattened clips; images: (N, H, W, 3) flattened frames.
     Returns ({"f_v" (N, 1, 1536), "f_a" (N, 1, 768), "vis_tokens" (N, 36,
-    1536)}, new state).
+    1536)}, new state). With `return_stage_taps` the outputs also hold
+    "stage_taps": each stage's visual tokens before its downsample (the
+    AVS model's multi-scale taps), the last one through `swin.norm`.
 
     Training: bn0 and the adapters' BNs on the batch's statistics, their
     new running stats in the new state; with `gen`, SpecAugment, then per
@@ -149,8 +159,10 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, i
     v_maps = a_maps = None
     tower_gen = gen if train else None
     wrap = (lambda fn: remat(fn, remat_policy)) if train else (lambda fn: fn)
+    layout = ave_paired_layout(cfg.swin, cfg.htsat)
+    stage_taps = []
 
-    for s_idx, stage in enumerate(ave_paired_layout(cfg.swin, cfg.htsat)):
+    for s_idx, stage in enumerate(layout):
         for (vb, ab, ai) in stage:
             vp = params["swin"]["layers"][s_idx]["blocks"][vb]
             vmeta = vis_plan[s_idx][vb]
@@ -173,6 +185,9 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, i
             for k in ADKEYS:
                 new_adapter_state[k][ai] = new_st[k]
 
+        if return_stage_taps:
+            last = s_idx == len(layout) - 1
+            stage_taps.append(layer_norm(params["swin"]["norm"], f_v) if last else f_v)
         if "downsample" in params["swin"]["layers"][s_idx]:
             f_v = S.patch_merging(params["swin"]["layers"][s_idx]["downsample"], f_v,
                                   cfg.swin.stage_resolution(s_idx), kernels=kernels)
@@ -186,4 +201,7 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, i
     f_v = torch.einsum("bon,bnc->boc", v_maps, f_v)
     f_a = torch.einsum("bon,bnc->boc", a_maps, f_a)
     new_state = {"htsat": new_frontend_state, "adapters": new_adapter_state}
-    return {"f_v": f_v, "f_a": f_a, "vis_tokens": vis_tokens}, new_state
+    out = {"f_v": f_v, "f_a": f_a, "vis_tokens": vis_tokens}
+    if return_stage_taps:
+        out["stage_taps"] = stage_taps
+    return out, new_state

@@ -92,6 +92,16 @@ def grouped_linear_init(init: Init, in_dim, out_dim, groups, bias=False):
     return p
 
 
+def conv2d_init(init: Init, kh, kw, in_ch, out_ch, bias=True):
+    """An NHWC convolution's params: kernel (kh, kw, in, out) (JAX's HWIO)."""
+    fan_in = kh * kw * in_ch
+    p = {"kernel": init.kaiming_uniform((kh, kw, in_ch, out_ch), fan_in)}
+    if bias:
+        bound = 1.0 / math.sqrt(fan_in)
+        p["bias"] = init.uniform((out_ch,), -bound, bound)
+    return p
+
+
 def patch_embed_init(init: Init, patch, in_chans, embed_dim, norm=True):
     fan_in = in_chans * patch * patch
     bound = 1.0 / math.sqrt(fan_in)
@@ -193,6 +203,15 @@ def patch_embed(params, x, patch):
     if "norm" in params:
         y = layer_norm(params["norm"], y)
     return y
+
+
+def conv2d(params, x):
+    """Stride-1 "SAME" convolution, x (N, H, W, C) -> (N, H, W, O), as XLA's
+    NHWC / HWIO convolution: cuDNN (or the CPU's) on channels-last views,
+    no copy of x."""
+    w = params["kernel"].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, params.get("bias"), padding="same")
+    return y.permute(0, 2, 3, 1)
 
 
 def merge_2x2(x, res):

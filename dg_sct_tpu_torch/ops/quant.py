@@ -1,5 +1,6 @@
-"""Int8 serving of the AVE model: static per-column int8 weights, symmetric
-int8 activations, int32 sums (`dg_sct_tpu/ops/quant.py`, AVE part).
+"""Int8 serving of the AVE and AVS models: static per-column int8 weights,
+symmetric int8 activations, int32 sums (`dg_sct_tpu/ops/quant.py`, AVE and
+AVS parts).
 
   * weights: per-output-column absmax scales, quantized once at load
     (`quantize_linear`, `quantize_tree`, `quantize_eval_params`);
@@ -192,6 +193,18 @@ def attach_qtags(tree, *, recorder, min_dim=192, skip_keys=()):
                           min_dim=min_dim, skip_keys=skip_keys)
 
 
+def _calibrate(params, towers, min_dim, run):
+    """Tag every eligible linear of `towers`, `run(tagged params)` once in
+    inference mode -> {qid: activation absmax}."""
+    recorder = Recorder()
+    tagged = dict(params)
+    tagged.update(attach_qtags(_ordered_towers(params, towers), recorder=recorder,
+                               min_dim=min_dim))
+    with torch.inference_mode():
+        run(tagged)
+        return recorder.scales()
+
+
 def calibrate_ave(params, state, cfg, wave, images, *, towers=("swin", "htsat"), min_dim=192,
                   gelu="exact", device=None):
     """One-shot activation calibration of the AVE eval forward: tag every
@@ -204,21 +217,25 @@ def calibrate_ave(params, state, cfg, wave, images, *, towers=("swin", "htsat"),
     takes them."""
     from ..models import ave
 
-    recorder = Recorder()
-    tagged = dict(params)
-    tagged.update(attach_qtags(_ordered_towers(params, towers), recorder=recorder,
-                               min_dim=min_dim))
-    with torch.inference_mode():
-        ave.forward(tagged, state, wave, images, cfg, train=False, kernels=False, gelu=gelu,
-                    device=device)
-        return recorder.scales()
+    return _calibrate(params, towers, min_dim, lambda p: ave.forward(
+        p, state, wave, images, cfg, train=False, kernels=False, gelu=gelu, device=device))
+
+
+def calibrate_avs(params, state, cfg, wave, images, *, towers=("swin", "htsat"), min_dim=192,
+                  gelu="exact", device=None):
+    """`calibrate_ave` for the AVS eval forward (`models.avs.forward`, which
+    takes images before wave)."""
+    from ..models import avs
+
+    return _calibrate(params, towers, min_dim, lambda p: avs.forward(
+        p, state, images, wave, cfg, kernels=False, gelu=gelu, device=device))
 
 
 def quantize_eval_params(params, *, towers=("swin", "htsat"), min_dim=192, act_scales=None):
-    """A full AVE param tree with the eligible linears of `towers` quantized
-    (heads stay float). Run it after `fold_adapters_eval` and after the cast
-    to the serving type. With `act_scales` from `calibrate_ave`, the
-    activations take static scales."""
+    """A full AVE or AVS param tree with the eligible linears of `towers`
+    quantized (heads stay float). Run it after `fold_adapters_eval` and after
+    the cast to the serving type. With `act_scales` from `calibrate_ave` (or
+    `calibrate_avs`), the activations take static scales."""
     out = dict(params)
     out.update(quantize_tree(_ordered_towers(params, towers), min_dim=min_dim,
                              act_scales=act_scales))

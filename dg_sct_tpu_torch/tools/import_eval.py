@@ -1,4 +1,5 @@
-"""One command: import a DG-SCT AVE checkpoint into the port and score AVE.
+"""One command: import a DG-SCT AVE or AVS checkpoint into the port, and
+score AVE.
 
     python -m dg_sct_tpu_torch.tools.import_eval \\
         --ave-ckpt /path/to/best_82.18.pt \\
@@ -24,7 +25,14 @@ Steps:
      per-clip-weighted mean of `train.metrics.ave_accuracy`, beside 82.18.
 
 `--census-only` audits shapes on the "meta" device and needs no card; the
-eval runs on `--device` (default: the card). Only the AVE family is ported.
+eval runs on `--device` (default: the card).
+
+`--task avs` (the AVS S4 `Pred_endecoder`, `S4_pvt_best.pth`) does what the
+JAX tool does for it: the census against `AVS_CKPT_IGNORED_PATTERNS` (exit 2),
+the shape audit through `from_jax` at `AVSModelConfig()` on the "meta"
+device (exit 3), and `--save` (the bundle adds "pvt_backbone", the bypassed
+PVT-v2-b5 tower, where the checkpoint has it); it scores no metric. The
+other tasks are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ import sys
 import numpy as np
 import torch
 
-from ..configs import AVEModelConfig, ave_adapter_dims
+from ..configs import AVEModelConfig, AVSModelConfig, ave_adapter_dims
 from ..data.ave import AVEDataset
 from ..serve import AVEInferenceEngine
 from ..train.metrics import ave_accuracy
@@ -50,9 +58,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--task", default="ave",
                    choices=("ave", "avvp", "avs", "avqa", "avqa_grounding"),
-                   help="checkpoint family; only ave is ported")
+                   help="checkpoint family; ave and avs are ported")
     p.add_argument("--ave-ckpt", "--ckpt", required=True, dest="ckpt", metavar="CKPT",
-                   help="the trained checkpoint (best_82.18.pt)")
+                   help="the trained checkpoint (best_82.18.pt, or S4_pvt_best.pth "
+                        "with --task avs)")
     p.add_argument("--htsat-ckpt", default=None,
                    help="HTSAT_AudioSet_Saved_1.ckpt (overlays the frozen audio tower "
                         "with pre-finetune weights)")
@@ -70,9 +79,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _census(sd, what, lax, out):
+def _census(sd, what, lax, out, ignored=TC.AVE_CKPT_IGNORED_PATTERNS):
     out = out or sys.stdout
-    report = TC.census_report(sd)
+    report = TC.census_report(sd, ignored)
     print(f"{what}: {len(report['consumed'])} consumed, {len(report['ignored'])} ignored "
           f"(documented), {len(report['unexplained'])} UNEXPLAINED", file=out)
     for k in report["unexplained"][:20]:
@@ -98,24 +107,54 @@ def import_ave_checkpoint(ave_ckpt: str, htsat_ckpt: str | None = None,
     return params, state, report
 
 
-def main(argv=None, cfg: AVEModelConfig | None = None):
-    """Runs the steps above; returns the accuracy in % when it scored a
-    split, else None."""
-    args = parse_args(argv)
-    if args.task != "ave":
-        raise NotImplementedError(f"--task {args.task}: {NOT_PORTED}")
-    cfg = cfg or AVEModelConfig()
-    params, state, _ = import_ave_checkpoint(args.ckpt, args.htsat_ckpt, cfg, lax=args.lax)
+def import_avs_checkpoint(ckpt: str, cfg: AVSModelConfig | None = None, lax=False, out=None):
+    """-> (params, state, pvt, report): the converted numpy tree, the
+    bypassed PVT-v2-b5 tree (or None) and the census of `ckpt`. Raises
+    SystemExit(2) on unexplained keys unless `lax`."""
+    cfg = cfg or AVSModelConfig()
+    sd = TC.track(TC.load_torch_file(ckpt))
+    n_adapters = len(ave_adapter_dims(cfg.swin, cfg.htsat))
+    params, state, pvt = TC.convert_avs_model(sd, n_adapters, cfg.adapter.num_conv_group,
+                                              cfg.tpavi_stages)
+    report = _census(sd, "census", lax, out, TC.AVS_CKPT_IGNORED_PATTERNS)
+    return params, state, pvt, report
+
+
+def _audit(params, state, cfg, device):
+    """The shape audit: the converted tree through `from_jax`; exit 3 on a
+    missing, extra or misshapen leaf."""
     try:
-        params_t, state_t = from_jax(params, state, cfg,
-                                     device="meta" if args.census_only else args.device)
+        tree = from_jax(params, state, cfg, device=device)
     except ValueError as e:
         print(f"shape audit: {e}")
         raise SystemExit(3) from e
     print("shape audit: OK (converted tree == the port's tree)")
-    if args.save:
-        ckpt_lib.save_params(args.save, {"params": params, "state": state})
-        print(f"saved converted checkpoint -> {args.save}")
+    return tree
+
+
+def _save(path, bundle):
+    if path:
+        ckpt_lib.save_params(path, bundle)
+        print(f"saved converted checkpoint -> {path}")
+
+
+def main(argv=None, cfg: AVEModelConfig | AVSModelConfig | None = None):
+    """Runs the steps above; returns the accuracy in % when it scored a
+    split, else None."""
+    args = parse_args(argv)
+    if args.task == "avs":
+        params, state, pvt, _ = import_avs_checkpoint(args.ckpt, cfg, lax=args.lax)
+        _audit(params, state, cfg or AVSModelConfig(), "meta")
+        _save(args.save, {"params": params, "state": state,
+                          **({} if pvt is None else {"pvt_backbone": pvt})})
+        return None
+    if args.task != "ave":
+        raise NotImplementedError(f"--task {args.task}: {NOT_PORTED}")
+    cfg = cfg or AVEModelConfig()
+    params, state, _ = import_ave_checkpoint(args.ckpt, args.htsat_ckpt, cfg, lax=args.lax)
+    params_t, state_t = _audit(params, state, cfg,
+                               "meta" if args.census_only else args.device)
+    _save(args.save, {"params": params, "state": state})
     if args.census_only:
         return None
     if not args.meta:

@@ -1,14 +1,17 @@
-"""DG-SCT PyTorch checkpoint -> the port's AVE parameter tree, in numpy.
+"""DG-SCT PyTorch checkpoint -> the port's AVE or AVS parameter tree, in numpy.
 
-The AVE part of `dg_sct_tpu/utils/torch_convert.py`: a flat
+The AVE and AVS parts of `dg_sct_tpu/utils/torch_convert.py`: a flat
 `{name: np.ndarray}` state dict (`load_torch_file`) of the full AVE
 `best_82.18.pt` MMIL_Net (timm swinv2 tower under `swin.`, HTS-AT under
-`htsat.`, adapters and heads), or of `HTSAT_AudioSet_Saved_1.ckpt` with its
-`sed_model.` prefix stripped, becomes the nested (params, state) tree of
-numpy arrays that `weights.from_jax` carries onto the device and checks leaf
-by leaf. A leading `module.` (nn.DataParallel) is stripped. `track` and
+`htsat.`, adapters and heads), of `HTSAT_AudioSet_Saved_1.ckpt` with its
+`sed_model.` prefix stripped, or of the AVS S4 `Pred_endecoder`
+(`convert_avs_model`, with its bypassed PVT-v2-b5 tower as a numpy tree
+only) becomes the nested (params, state) tree of numpy arrays that
+`weights.from_jax` carries onto the device and checks leaf by leaf. A
+leading `module.` (nn.DataParallel) is stripped. `track` and
 `census_report` account for every checkpoint key: consumed, ignored by
-`AVE_CKPT_IGNORED_PATTERNS`, or unexplained.
+`AVE_CKPT_IGNORED_PATTERNS` (or `AVS_CKPT_IGNORED_PATTERNS`), or
+unexplained.
 """
 from __future__ import annotations
 
@@ -356,31 +359,164 @@ def convert_ave_model(sd, num_adapters=12, groups=2):
 
 
 # ---------------------------------------------------------------------------
+# AVS: Pred_endecoder (`avs_s4/model/PVT_AVSModel.py:584-988`)
+# ---------------------------------------------------------------------------
+
+def convert_conv2d(sd, name):
+    """torch Conv2d weight (O, I, kh, kw) -> (kh, kw, I, O); a depthwise one
+    (C, 1, kh, kw) -> (kh, kw, 1, C)."""
+    w = np.asarray(sd[f"{name}.weight"])
+    p = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0))}
+    if f"{name}.bias" in sd:
+        p["bias"] = np.asarray(sd[f"{name}.bias"])
+    return p
+
+
+def convert_conv3d_1x1(sd, name):
+    """TPAVI's 1x1x1 Conv3d, a channel matmul -> linear params."""
+    w = np.asarray(sd[f"{name}.weight"])[:, :, 0, 0, 0]
+    return {"kernel": _t(w), "bias": np.asarray(sd[f"{name}.bias"])}
+
+
+def convert_tpavi(sd, pre):
+    """TPAVIModule ('dot', bn_layer=True; `avs_s4/model/TPAVI.py`). Returns
+    (params, state)."""
+    params = {
+        "align_channel": convert_linear(sd, f"{pre}.align_channel"),
+        "norm_layer": convert_layernorm(sd, f"{pre}.norm_layer"),
+        "g": convert_conv3d_1x1(sd, f"{pre}.g"),
+        "theta": convert_conv3d_1x1(sd, f"{pre}.theta"),
+        "phi": convert_conv3d_1x1(sd, f"{pre}.phi"),
+        # W_z = Sequential(Conv3d 1x1x1, BatchNorm3d)
+        "W_z": convert_conv3d_1x1(sd, f"{pre}.W_z.0"),
+    }
+    params["bn"], bn_state = convert_batchnorm(sd, f"{pre}.W_z.1")
+    return params, {"bn": bn_state}
+
+
+def convert_avs_temporal_attention(sd, pre="temporal_attn", num_scales=4):
+    """AVS 4-scale TemporalAttention: every sub-module a per-scale ModuleList."""
+    def enc(name, i):
+        return {"affine": convert_linear(sd, f"{pre}.{name}.{i}.affine_matrix"),
+                "layers": [_enc_layer(sd, f"{pre}.{name}.{i}.encoder.layers.{j}")
+                           for j in range(2)]}
+
+    def dec(name, i):
+        return {"affine": convert_linear(sd, f"{pre}.{name}.{i}.affine_matrix"),
+                "layers": [_dec_layer(sd, f"{pre}.{name}.{i}.decoder.layers.0")]}
+
+    scales = []
+    for i in range(num_scales):
+        rnn = f"{pre}.audio_visual_rnn_layer.{i}"
+        scales.append({
+            "v_fc": convert_linear(sd, f"{pre}.v_fc.{i}"),
+            "audio_rnn": convert_bilstm(sd, f"{rnn}.audio_rnn"),
+            "visual_rnn": convert_bilstm(sd, f"{rnn}.visual_rnn"),
+            "video_encoder": enc("video_encoder", i),
+            "audio_encoder": enc("audio_encoder", i),
+            "video_decoder": dec("video_decoder", i),
+            "audio_decoder": dec("audio_decoder", i),
+            "audio_gated": convert_linear(sd, f"{pre}.audio_gated.{i}.0"),
+            "video_gated": convert_linear(sd, f"{pre}.video_gated.{i}.0"),
+        })
+    return {"scales": scales}
+
+
+def convert_pvt_v2(sd, depths=(3, 6, 40, 3)):
+    """PVT-v2-b5 (`avs_s4/model/pvt.py`) -> the JAX package's `models/pvt.py`
+    tree, in numpy only: the AVS checkpoint carries it under
+    `encoder_backbone.`, and its forward is bypassed on the live path."""
+    stages = []
+    for s in range(len(depths)):
+        blocks = []
+        for b in range(depths[s]):
+            pre = f"block{s + 1}.{b}"
+            p = {"norm1": convert_layernorm(sd, f"{pre}.norm1"),
+                 "q": convert_linear(sd, f"{pre}.attn.q"),
+                 "kv": convert_linear(sd, f"{pre}.attn.kv"),
+                 "proj": convert_linear(sd, f"{pre}.attn.proj"),
+                 "norm2": convert_layernorm(sd, f"{pre}.norm2"),
+                 "fc1": convert_linear(sd, f"{pre}.mlp.fc1"),
+                 "dwconv": convert_conv2d(sd, f"{pre}.mlp.dwconv.dwconv"),
+                 "fc2": convert_linear(sd, f"{pre}.mlp.fc2")}
+            if f"{pre}.attn.sr.weight" in sd:
+                p["sr"] = convert_conv2d(sd, f"{pre}.attn.sr")
+                p["sr_norm"] = convert_layernorm(sd, f"{pre}.attn.norm")
+            blocks.append(p)
+        stages.append({
+            "patch_embed": {"proj": convert_conv2d(sd, f"patch_embed{s + 1}.proj"),
+                            "norm": convert_layernorm(sd, f"patch_embed{s + 1}.norm")},
+            "blocks": blocks,
+            "norm": convert_layernorm(sd, f"norm{s + 1}"),
+        })
+    return {"stages": stages}
+
+
+def convert_avs_model(sd, num_adapters=12, groups=2, tpavi_stages=(0, 1, 2, 3)):
+    """Full Pred_endecoder state dict -> (params, state, pvt): `pvt` is the
+    bypassed `encoder_backbone.` PVT-v2-b5 tree, or None if the checkpoint
+    lacks it."""
+    sd = strip_prefix(sd, "module.")
+    swin = convert_swinv2(subdict(sd, "swin."))
+    htsat, htsat_state = convert_htsat(subdict(sd, "htsat."))
+    adapters, adapter_state = convert_adapter_lists(sd, num_adapters, groups)
+    conv_unit = lambda pre: {"conv1": convert_conv2d(sd, f"{pre}.conv1"),
+                             "conv2": convert_conv2d(sd, f"{pre}.conv2")}
+    params = {
+        "swin": swin,
+        "htsat": htsat,
+        "adapters": adapters,
+        # x{i}_linear_ are the live per-stage aligners; x{i}_linear are dead
+        "scale_linears": [convert_linear(sd, f"x{i + 1}_linear_") for i in range(4)],
+        "audio_linear": convert_linear(sd, "audio_linear"),
+        "temporal_attn": convert_avs_temporal_attention(sd),
+        "paths": [{"res1": conv_unit(f"path{i + 1}.resConfUnit1"),
+                   "res2": conv_unit(f"path{i + 1}.resConfUnit2")} for i in range(4)],
+        "out_conv1": convert_conv2d(sd, "output_conv.0"),
+        "out_conv2": convert_conv2d(sd, "output_conv.2"),
+        "out_conv3": convert_conv2d(sd, "output_conv.4"),
+        "tpavi": {},
+    }
+    state = {"htsat": htsat_state, "adapters": adapter_state, "tpavi": {}}
+    for i in tpavi_stages:
+        name = f"tpavi_b{i + 1}"
+        params["tpavi"][name], state["tpavi"][name] = convert_tpavi(sd, name)
+    pvt = None
+    if any(k.startswith("encoder_backbone.") for k in sd):
+        pvt = convert_pvt_v2(subdict(sd, "encoder_backbone."))
+    return params, state, pvt
+
+
+# ---------------------------------------------------------------------------
 # Census accounting: every key of the reference checkpoints is either
 # consumed by the converters above or matches one of these documented
 # ignore patterns (held against the key census of best_82.18.pt and
 # HTSAT_AudioSet_Saved_1.ckpt in tests/golden/).
 # ---------------------------------------------------------------------------
 
-AVE_CKPT_IGNORED_PATTERNS = (
+_SHARED_TOWER_IGNORED = (
     # deterministic coordinate/index grids, recomputed in ops/windows.py
     r"\.attn\.relative_coords_table$",
     r"\.attn\.relative_position_index$",
     # the 21841-class IN22k classifier head of the timm swin; DG-SCT drives
     # only the blocks (net_trans.py:894-914), never swin.forward/head
     r"^swin\.head\.",
-    # registered in MMIL_Net.__init__ (net_trans.py:800-803) but never
-    # called in any forward — dead trainable params in the checkpoint
-    r"^adapter_token_downsampler\.",
     # frozen DSP bases (torchlibrosa): DFT conv weights and the slaney mel
     # filterbank, built exactly in ops/dsp.py
     r"spectrogram_extractor\.stft\.conv_(real|imag)\.weight$",
     r"logmel_extractor\.melW$",
-    # adapter gate registered per VisualAdapter but unused in its forward
+    # adapter gate registered per VisualAdapter but unused in every task's
+    # forward
     r"\.gate_tk$",
     # HTS-AT registers each block's shift mask as a buffer
     # (htsat.py:203-208); we recompute masks from (res, ws, shift)
     r"\.attn_mask$",
+)
+
+AVE_CKPT_IGNORED_PATTERNS = _SHARED_TOWER_IGNORED + (
+    # registered in MMIL_Net.__init__ (net_trans.py:800-803) but never
+    # called in any forward — dead trainable params in the checkpoint
+    r"^adapter_token_downsampler\.",
     # CMBS registers LayerNorms it never calls (net_trans.py:264-265 defined,
     # absent from CMBS.forward 272-292)
     r"^CMBS\.(video|audio)_norm\.",
@@ -389,6 +525,17 @@ AVE_CKPT_IGNORED_PATTERNS = (
     # `self.layers = _get_clones(encoder_layer, N)`), so the prototype's
     # params are dead weight in the checkpoint
     r"^temporal_attn\.\w+\.(encoder_layer|decoder_layer)\.",
+)
+
+AVS_CKPT_IGNORED_PATTERNS = _SHARED_TOWER_IGNORED + (
+    # the dead PVT-dim aligners and ASPP classifiers: the live path uses
+    # x{i}_linear_ only (PVT_AVSModel.py:903,920 commented out)
+    r"^x[1-4]_linear\.",
+    r"^conv[1-4]\.conv2d_list\.",
+    # temporal_gated is computed but its modulation is commented out
+    r"\.temporal_gated\.",
+    # per-scale Encoder/Decoder prototype layers (the clones run instead)
+    r"^temporal_attn\.\w+\.\d+\.(encoder_layer|decoder_layer)\.",
 )
 
 

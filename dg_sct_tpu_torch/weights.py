@@ -1,4 +1,4 @@
-"""Carries the JAX package's AVE (params, state) across to the port.
+"""Carries the JAX package's AVE or AVS (params, state) across to the port.
 
 The port keeps the JAX tree: the same nested dict keys and list lengths, and
 the same leaf shapes (linear kernels (in, out), grouped kernels
@@ -11,9 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .configs import AVEModelConfig
+from .configs import AVEModelConfig, AVSModelConfig
 from .device import resolve_device
 from .models.ave import init_ave_model
+from .models.avs import init_avs_model
 
 
 def _convert(ref, src, path, device):
@@ -35,12 +36,13 @@ def _convert(ref, src, path, device):
     return torch.as_tensor(np.array(arr), device=device).to(ref.dtype)
 
 
-def from_jax(params_np, state_np, cfg: AVEModelConfig, *, device=None):
-    """(params, state) of `dg_sct_tpu.models.ave.init_ave_model`, as nested
-    dicts and lists of numpy arrays -> the port's float32 (params, state)
-    on `device` (None: the card). Every leaf must be consumed and every shape
-    must match."""
+def from_jax(params_np, state_np, cfg: AVEModelConfig | AVSModelConfig, *, device=None):
+    """(params, state) of `dg_sct_tpu.models.ave.init_ave_model` (or, for an
+    AVSModelConfig, `models.avs.init_avs_model`), as nested dicts and lists
+    of numpy arrays -> the port's float32 (params, state) on `device` (None:
+    the card). Every leaf must be consumed and every shape must match."""
     device = resolve_device(device)
-    ref_p, ref_s = init_ave_model(cfg, device="meta")
+    init = init_avs_model if isinstance(cfg, AVSModelConfig) else init_ave_model
+    ref_p, ref_s = init(cfg, device="meta")
     return (_convert(ref_p, params_np, "params", device),
             _convert(ref_s, state_np, "state", device))

@@ -90,8 +90,21 @@ def test_adapter_folded(geom, kernels):
     close(maps, ref_maps)
 
 
-def test_avs_variant_is_not_ported():
+def test_avs_variant_is_not_ported(monkeypatch):
+    """The AVS variant runs and matches JAX's (tests/test_torch_avs.py also
+    holds it against DG-SCT's goldens); what stays unported is a K3 route
+    for it, which the JAX package lacks: with kernels on, it never reaches
+    K3."""
     p, s, x, other = _adapter(GEOMETRIES[0], seed=4)
-    with pytest.raises(NotImplementedError):
-        PA.adapter(to_torch(p), to_torch(s), torch.from_numpy(x), torch.from_numpy(other),
-                   PAdapterConfig(avs_variant=True))
+    p = {k: v for k, v in p.items() if k not in ("bn1", "bn2")}
+    ref, ref_maps, _ = JA.adapter(p, {}, jnp.asarray(x), jnp.asarray(other),
+                                  JAdapterConfig(use_bn=False, avs_variant=True))
+
+    def no_k3(*args, **kw):
+        raise AssertionError("an AVS adapter reached K3")
+
+    monkeypatch.setattr(PA, "fused_bottleneck", no_k3)
+    got, maps, _ = PA.adapter(to_torch(p), {}, torch.from_numpy(x), torch.from_numpy(other),
+                              PAdapterConfig(use_bn=False, avs_variant=True), kernels=True)
+    close(got, ref)
+    close(maps, ref_maps)
