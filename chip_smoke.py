@@ -87,16 +87,40 @@ Phases, each fatal on failure:
      int8 plain one (AVS_INT8_TOL on the mean |delta| over the mean |logit|,
      and faults planted in front of K1) and each of its 142 K4 and 34 K1
      calls against the plain version on its own input.
-     The bounds of this phase are checked once every reading is printed.
+     The bounds of this phase are checked once every reading is printed;
+  9. train the AVS model at full width (AVSModelConfig(), random weights from
+     seed 0, the visual adapters' gates and TPAVI's BN scales set nonzero
+     from seed 1) in float32, TF32 off, at the recipe's step (B=4 clips: 20
+     frames and 20 audio clips, accum 1, Adam at 3e-4, remat "full"): 3 S4
+     mini-steps on seeded synthetic batches with a generator (SpecAugment
+     and the head's dropout on), each loss finite, every trainable leaf
+     changed after them but the unused ones (the head's decoders, path4's
+     skip unit, the AVS adapters' ln_before and token_resample) and the
+     TPAVI W_z biases (exact gradient 0: a BN on the batch's statistics
+     follows), every frozen leaf bit-identical, the BN state of bn0 and
+     each TPAVI moved, no kernel launched; each mini-step's time and the
+     peak memory (`avs train:` lines); 2 MS3 mini-steps (every frame's BCE
+     and the KL term on the 4 TPAVI stages), finite losses; TPAVI stage 0
+     alone in training, the memory it holds and its forward's peak; one
+     mini-step with remat "none" (time, peak memory); one profiled S4
+     mini-step (`avs train profile:`, cuDNN convolutions and TPAVI's
+     products, forward and backward, as their own groups); the eval step on
+     the trained weights (launches K1/K2/K3/K4 = 2/34/0/0, masks finite in
+     [0, 1]); the saved train state loaded into a bf16 AVSInferenceEngine,
+     which answers 2 clips (2/34/0/0); and `avs_main.main(["--mode",
+     "train", "--task", "s4", "--epochs", "1", ...])` once, on the card by
+     default, over an on-disk tree with train and test splits: it must save
+     `s4_best.npz` and print a test mIoU and F-score in [0, 1].
 It then prints the kernels line (launches from phase 4, K4's from phase 7),
 the card line and, last, the ok line.
 
     python3 chip_smoke.py --only adapter_bottleneck   # phases 1-3 for K3 alone
     python3 chip_smoke.py --only avs                  # phases 1, 2 and 8
+    python3 chip_smoke.py --only avs_train            # phases 1, 2 and 9
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 to 8 (`--only int8_linear` for K4); `--only avs` runs phase 8 alone.
-Such a run prints no ok line.
+phases 4 to 9 (`--only int8_linear` for K4); `--only avs` runs phase 8 alone
+and `--only avs_train` phase 9. Such a run prints no ok line.
 """
 from __future__ import annotations
 
@@ -600,19 +624,23 @@ def profile_forward(eng, wave, frames):
                 "profile")
 
 
-def profile_run(fn, what, tag, host_ops=True, op_group=None):
+def profile_run(fn, what, tag, host_ops=True, op_group=None, record_shapes=False):
     """`fn()` under torch.profiler; prints `tag:` lines: device busy time and
     the idle share of the span from the first kernel's start to the last
     one's end, time by kernel group, the busiest kernels. `host_ops=False`
     records device activity only (a train step's host ops number ~10^5).
     `op_group(host op)` -> a group name or None moves the kernels a host op
     launched from their name's group to that one (by the op's own kernel
-    list, so each kernel moves once), and splits "other" by the host op
-    (and its parent) that launched each kernel; returns {group: ms}."""
+    list, so each kernel moves once; only `aten::` operators count), and
+    splits "other" by the host op (and its parent) that launched each
+    kernel; with host ops, each of the busiest kernels is printed beside
+    the host op (and its parent) that launched most of its time.
+    `record_shapes` gives op_group the host ops' input shapes. Returns
+    {group: ms}."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=record_shapes) as prof:
         fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -625,18 +653,23 @@ def profile_run(fn, what, tag, host_ops=True, op_group=None):
         group = kernel_group(e.name)
         by_group[group] = by_group.get(group, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-    moved, other_ops = {}, {}
-    for e in prof.events() if op_group else ():
-        if not e.kernels or e.device_type != torch.autograd.DeviceType.CPU:
+    moved, other_ops, launcher = {}, {}, {}
+    for e in prof.events() if host_ops else ():
+        # operators only: the profiler's own "Buffer Flush" and "Activity Buffer
+        # Request" events can carry kernels of colliding correlation ids
+        if (not e.kernels or e.device_type != torch.autograd.DeviceType.CPU
+                or not e.name.startswith("aten::")):
             continue
-        group = op_group(e)
+        group = op_group(e) if op_group else None
+        key = " < ".join(op.name for op in (e, e.cpu_parent) if op is not None)
         for k in e.kernels:
+            ops = launcher.setdefault(k.name, {})
+            ops[key] = ops.get(key, 0.0) + k.duration
             if group:
                 by_group[kernel_group(k.name)] = by_group.get(kernel_group(k.name), 0.0) - k.duration
                 by_group[group] = by_group.get(group, 0.0) + k.duration
                 moved[group] = moved.get(group, 0) + 1
-            elif kernel_group(k.name) == "other":  # "other" by the host op that launched it
-                key = " < ".join(op.name for op in (e, e.cpu_parent) if op is not None)
+            elif op_group and kernel_group(k.name) == "other":  # "other" by the host op
                 us, n = other_ops.get(key, (0.0, 0))
                 other_ops[key] = (us + k.duration, n + 1)
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -657,7 +690,9 @@ def profile_run(fn, what, tag, host_ops=True, op_group=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, us in top[:10] + [kv for kv in top[10:] if kernel_group(kv[0])[0] == "K"]:
         short = name.replace("dgsct::(anonymous namespace)::", "")
-        print(f"{tag}:   {us / 1e3:9.3f} ms  {kernel_group(name):5s} {short[:110]}", flush=True)
+        ops = launcher.get(name)
+        by = f"  [{max(ops, key=ops.get)}]" if ops else ""
+        print(f"{tag}:   {us / 1e3:9.3f} ms  {kernel_group(name):5s} {short[:110]}{by}", flush=True)
     for key, (us, n) in sorted(other_ops.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"{tag}:   other by host op: {us / 1e3:9.3f} ms in {n} kernels  {key}", flush=True)
     return {g: us / 1e3 for g, us in by_group.items()}
@@ -1472,17 +1507,17 @@ def avs_op_group(e):
     return None
 
 
-def write_avs_tree(root, videos, cfg, seed=0):
-    """An AVSBench tree: T PNG frames and binary masks (mask_size^2) a video
+def write_avs_tree(root, videos, cfg, seed=0, split="test"):
+    """An AVSBench split: T PNG frames and binary masks (mask_size^2) a video
     and a float32 wave of T x clip_samples."""
     from PIL import Image
 
     rs = np.random.RandomState(seed)
     T, S, L = cfg.num_frames, cfg.mask_size, cfg.htsat.frontend.clip_samples
-    (root / "audio_wav").mkdir(parents=True)
+    (root / "audio_wav").mkdir(parents=True, exist_ok=True)
     for cat, vid in videos:
-        fdir = root / "visual_frames" / "test" / cat / vid
-        mdir = root / "gt_masks" / "test" / cat / vid
+        fdir = root / "visual_frames" / split / cat / vid
+        mdir = root / "gt_masks" / split / cat / vid
         fdir.mkdir(parents=True)
         mdir.mkdir(parents=True)
         for t in range(T):
@@ -1818,11 +1853,327 @@ def run_avs(device="cuda"):
         raise AssertionError("; ".join(bad))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: AVS training at full width
+# ---------------------------------------------------------------------------
+
+AVS_TRAIN_BATCH = 4    # avs_main's --batch-size: 20 frames and 20 audio clips a mini-step
+AVS_TRAIN_LR = 3e-4    # avs_main's --lr
+AVS_S4_STEPS = 3
+AVS_MS3_STEPS = 2
+AVS_MAIN_VIDEOS = {"train": 4, "test": 2}  # the entry point's tree: one mini-step of B=4
+NO_LAUNCHES = {name: 0 for name in SOURCES}
+
+
+def avs_unused_leaf(path) -> bool:
+    """Trainable weights the AVS forward never reads, kept for checkpoint
+    parity: the head's per-scale decoders (`models/heads/avs.py`), the skip
+    unit of path4, which takes no skip (`models/avs.py`), and each AVS
+    adapter's ln_before and token_resample (the AVS variant resizes its
+    prompts and has no LN before; `models/adapter.py`). Their gradient is
+    zero, so Adam leaves them."""
+    return ((path[0] == "temporal_attn" and path[3].endswith("_decoder"))
+            or (path[0] == "paths" and path[1] == 3 and path[2] == "res1")
+            or (path[0] == "adapters" and path[3] in ("ln_before", "token_resample")))
+
+
+def avs_cancelled_leaf(path) -> bool:
+    """TPAVI's W_z bias: a per-channel shift in front of a BN on the batch's
+    statistics, which removes it. Its exact gradient is 0, so Adam moves it
+    by the sign of a rounding, or not at all."""
+    return path[0] == "tpavi" and path[2] == "W_z" and path[-1] == "bias"
+
+
+def seeded_avs_model(cfg, device="cuda"):
+    """Float32 (params, state) from seed 0, with the zero-init scalars that
+    would zero their branch's gradient set from seed 1: each visual
+    adapter's gate in [0.2, 0.6] and each TPAVI BN scale in [0.5, 1.5]. The
+    adapters' gate_av stays zero: the insides of its cross-attention learn
+    from the second step on."""
+    from dg_sct_tpu_torch.models import avs
+
+    params, state = avs.init_avs_model(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    for k in ("v_p1", "v_p2"):
+        for ap in params["adapters"][k]:
+            ap["gate"] = torch.empty_like(ap["gate"]).uniform_(0.2, 0.6, generator=gen)
+    for tp in params["tpavi"].values():
+        tp["bn"]["scale"] = torch.empty_like(tp["bn"]["scale"]).uniform_(0.5, 1.5, generator=gen)
+    return params, state
+
+
+def avs_train_batches(cfg, n, seed, device, *, mask_frames):
+    """`n` seeded synthetic batches of AVS_TRAIN_BATCH clips at the model's
+    widths on `device`; mask_frames 1 (S4) or T (MS3)."""
+    from dg_sct_tpu_torch.data.avs import synthetic_batch
+
+    return [{k: torch.as_tensor(v, device=device) for k, v in synthetic_batch(
+        AVS_TRAIN_BATCH, img_size=cfg.mask_size, seed=seed + i, mask_frames=mask_frames,
+        num_frames=cfg.num_frames, sr=cfg.htsat.frontend.clip_samples).items()}
+        for i in range(n)]
+
+
+def avs_train_op_group(sides):
+    """The AVS train profile's host-op groups: every kernel under a
+    convolution or its backward (cuDNN), and TPAVI's products, forward and
+    backward: the `bmm` calls with an operand of (B, THW, C) or (B, THW,
+    THW), THW one of `sides` (no other product of the model has such an
+    axis)."""
+    def group(e):
+        op = e
+        while op is not None:
+            if op.name in ("aten::convolution", "aten::convolution_backward"):
+                return "cuDNN conv"
+            op = op.cpu_parent
+        if e.name == "aten::bmm" and any(len(s) == 3 and (s[1] in sides or s[2] in sides)
+                                         for s in e.input_shapes):
+            return "TPAVI products"
+        return None
+    return group
+
+
+def tpavi_stage0_memory(params, state, cfg, device):
+    """TPAVI's stage-0 block in training on AVS_TRAIN_BATCH clips, alone:
+    (bytes held after its forward, for autograd and the outputs; its
+    forward's peak), both above what was resident before it."""
+    from dg_sct_tpu_torch.models import tpavi as TP
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    T, S, C = cfg.num_frames, cfg.scale_sizes[0], cfg.channel
+    x = torch.randn((AVS_TRAIN_BATCH, T, S, S, C), device=device, generator=gen,
+                    requires_grad=True)
+    audio = torch.randn((AVS_TRAIN_BATCH, T, C // 2), device=device, generator=gen)
+    tp = {k: {n: t.detach().requires_grad_() for n, t in v.items()}
+          for k, v in params["tpavi"]["tpavi_b1"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = TP.tpavi(tp, state["tpavi"]["tpavi_b1"], x, audio, train=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return held, peak
+
+
+def avs_main_once(cfg, tmp):
+    """`avs_main.main` in train mode, S4, one epoch, on the card by default,
+    over a tree of AVS_MAIN_VIDEOS videos a split -> (result, s4_best.npz's
+    bytes, the printed test line, seconds)."""
+    import contextlib
+    import io
+
+    from dg_sct_tpu_torch.train import avs_main
+
+    root = Path(tmp)
+    for i, (split, n) in enumerate(AVS_MAIN_VIDEOS.items()):
+        write_avs_tree(root, [(f"cat{j % 2}", f"{split}{j:03d}") for j in range(n)], cfg,
+                       seed=50 + i, split=split)
+    save = root / "ckpt"
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        result = avs_main.main(["--mode", "train", "--task", "s4", "--epochs", "1",
+                                "--batch-size", str(AVS_TRAIN_BATCH), "--root", str(root),
+                                "--save-dir", str(save)], cfg=cfg)
+    dt = time.perf_counter() - t0
+    best = save / "s4_best.npz"
+    tests = [ln for ln in log.getvalue().splitlines() if ln.startswith("test mIoU:")]
+    if (not best.exists() or result is None or len(tests) != 1
+            or not all(0.0 <= result[k] <= 1.0 for k in ("miou", "f_score"))):
+        raise AssertionError(f"avs main: no s4_best.npz, or no test report in range: {result}, "
+                             f"{log.getvalue()[-500:]}")
+    return result, best.stat().st_size, tests[0], dt
+
+
+def run_avs_training(cfg=None, device="cuda"):
+    """Phase 9: `cfg` (None: the full-width AVSModelConfig()) trained in float32 at the recipe's
+    step (B=4 clips, accum 1, Adam at 3e-4, remat "full"): AVS_S4_STEPS S4
+    mini-steps with a generator, the checks of each; AVS_MS3_STEPS MS3
+    mini-steps; a mini-step with remat "none"; TPAVI stage 0's memory; a
+    profiled mini-step; the eval step; the saved train state served by a
+    bf16 engine; the entry point once."""
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import AVSModelConfig, TrainConfig
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.serve import AVSInferenceEngine
+    from dg_sct_tpu_torch.train import avs_train
+    from dg_sct_tpu_torch.utils import checkpoint as ckpt
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+    from dg_sct_tpu_torch.weights import from_jax
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = cfg or AVSModelConfig()
+    params, state = seeded_avs_model(cfg, device)
+    tr, fr = avs_train.partition_params(params)
+    p0 = {p: t.cpu() for p, t in tree_paths(params)}  # on the host: not in the peak
+    s0 = {p: t.cpu() for p, t in tree_paths(state)}
+    del params
+    tcfg = TrainConfig(batch_size=AVS_TRAIN_BATCH, lr=AVS_TRAIN_LR, accum_steps=1)
+    opt = avs_train.make_optimizer(tr, tcfg, steps_per_epoch=1)
+    opt_state = opt.init(tr)
+    step = avs_train.make_train_step(cfg, opt, task="s4", device=device, remat_policy="full")
+    batches = avs_train_batches(cfg, AVS_S4_STEPS, seed=40, device=device, mask_frames=1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    print(f"avs train: {'AVSModelConfig()' if cfg == AVSModelConfig() else cfg} in float32, "
+          f"TF32 off; seed 0, visual adapter gates and "
+          f"TPAVI BN scales set from seed 1; B={AVS_TRAIN_BATCH} clips "
+          f"({AVS_TRAIN_BATCH * cfg.num_frames} frames and audio clips), accum 1, Adam at "
+          f"{AVS_TRAIN_LR:g}, remat full", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for i in range(AVS_S4_STEPS):
+        (tr, state, opt_state, m), dt = timed_step(step, (tr, fr, state, opt_state, batches[i],
+                                                          gen))
+        times.append(dt)
+        loss = float(m["loss"])
+        print(f"avs train: S4 mini-step {i + 1}: loss {loss:.4f}, {dt:.3f} s", flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"avs train: S4 mini-step {i + 1}: the loss is not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = launch_counts()
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"avs train: the train steps launched kernels {counts}")
+    now = dict(tree_paths(avs_train.merge_params(tr, fr)))
+    same = {p: torch.equal(now[p].cpu(), p0[p]) for p in p0}
+    frozen = [p for p in same if p[0] in ("swin", "htsat")]
+    trained = [p for p in same if p[0] not in ("swin", "htsat")]
+    cancelled = [p for p in trained if avs_cancelled_leaf(p)]
+    bad = ([p for p in frozen if not same[p]]
+           + [p for p in trained if not avs_cancelled_leaf(p) and same[p] != avs_unused_leaf(p)])
+    if bad:
+        raise AssertionError(f"avs train: after {AVS_S4_STEPS} mini-steps, leaves against the "
+                             f"rule: {bad[:5]}")
+    bn = [(p, t) for p, t in tree_paths(state) if p[-1] in ("mean", "var")]
+    still = [p for p, t in bn if torch.equal(t.cpu(), s0[p])]
+    counts_bn = {int(t) for p, t in tree_paths(state) if p[-1] == "count"}
+    if still or counts_bn != {AVS_S4_STEPS} or len(bn) != 2 * (1 + len(cfg.tpavi_stages)):
+        raise AssertionError(f"avs train: BN state did not move: {still[:3]}, counts {counts_bn}")
+    print(f"avs train: {AVS_S4_STEPS} S4 mini-steps: " + ", ".join(f"{t:.3f}" for t in times)
+          + f" s; peak memory {peak:.3f} GiB; {sum(not same[p] for p in trained)} trainable leaves "
+          f"changed, {sum(avs_unused_leaf(p) for p in trained)} unused ones and {len(frozen)} "
+          f"frozen ones bit-identical, {sum(not same[p] for p in cancelled)} of the "
+          f"{len(cancelled)} TPAVI W_z biases moved (exact gradient 0); {len(bn)} BN stats of bn0 "
+          f"and TPAVI moved, counts {AVS_S4_STEPS}; kernel launches {counts}; card "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    del p0, s0, now
+
+    # MS3: every frame's BCE and the KL term on the 4 TPAVI stages
+    ms3_opt = avs_train.make_optimizer(tr, tcfg, steps_per_epoch=1)
+    ms3_state = ms3_opt.init(tr)
+    ms3 = avs_train.make_train_step(cfg, ms3_opt, task="ms3", device=device)
+    ms3_batches = avs_train_batches(cfg, AVS_MS3_STEPS, seed=60, device=device,
+                                    mask_frames=cfg.num_frames)
+    torch.cuda.reset_peak_memory_stats()
+    mtr, mstate, ms3_times, ms3_losses = tr, state, [], []
+    for i in range(AVS_MS3_STEPS):
+        (mtr, mstate, ms3_state, m), dt = timed_step(ms3, (mtr, fr, mstate, ms3_state,
+                                                           ms3_batches[i], gen))
+        ms3_times.append(dt)
+        ms3_losses.append(float(m["loss"]))
+    if not all(math.isfinite(v) for v in ms3_losses):
+        raise AssertionError(f"avs train: MS3 losses {ms3_losses}")
+    print(f"avs train: {AVS_MS3_STEPS} MS3 mini-steps (KL on stages {list(cfg.tpavi_stages)}): "
+          f"losses {', '.join(f'{v:.4f}' for v in ms3_losses)}; "
+          + ", ".join(f"{t:.3f}" for t in ms3_times)
+          + f" s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del mtr, mstate, ms3_state, ms3_opt, ms3, ms3_batches
+
+    held, tp_peak = tpavi_stage0_memory(avs_train.merge_params(tr, fr), state, cfg, device)
+    n = cfg.num_frames * cfg.scale_sizes[0] ** 2
+    print(f"avs train: TPAVI stage 0 alone in training, B={AVS_TRAIN_BATCH} (THW {n}; f is "
+          f"{AVS_TRAIN_BATCH * n * n * 4 / 2**30:.3f} GiB in float32): "
+          f"{held / 2**30:.3f} GiB held after its forward, forward peak {tp_peak / 2**30:.3f} GiB "
+          f"above resident", flush=True)
+
+    none = avs_train.make_train_step(cfg, opt, task="s4", device=device, remat_policy="none")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, _, m), dt = timed_step(none, (tr, fr, state, opt_state, batches[0],
+                                         torch.Generator(device=device).manual_seed(5)))
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError("avs train remat none: the loss is not finite")
+    print(f"avs train remat none: one S4 mini-step of B={AVS_TRAIN_BATCH} clips in {dt:.3f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del none
+
+    sides = {cfg.num_frames * s * s for s in cfg.scale_sizes}
+    groups = profile_run(lambda: step(tr, fr, state, opt_state, batches[0], gen),
+                         f"one S4 mini-step of {AVS_TRAIN_BATCH} clips, remat full",
+                         "avs train profile", op_group=avs_train_op_group(sides),
+                         record_shapes=True)
+    # the profiler's host-op records slow the host several times over, so the
+    # idle share of the profiled span overstates the card's idle time
+    unprofiled = float(np.median(times[1:]))
+    print(f"avs train profile: {sum(groups.values()):.3f} ms of device time against the "
+          f"unprofiled mini-steps' median {unprofiled:.3f} s: "
+          f"{100.0 * (1.0 - sum(groups.values()) / 1e3 / unprofiled):.1f}% idle", flush=True)
+
+    estep = avs_train.make_eval_step(cfg, device=device)
+    reset_launch_counts()
+    probs = estep(tr, fr, state, batches[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    shape = (AVS_TRAIN_BATCH * cfg.num_frames, cfg.mask_size, cfg.mask_size, 1)
+    if (counts != AVS_PER_FORWARD or tuple(probs.shape) != shape
+            or not bool(torch.isfinite(probs).all()) or probs.min() < 0 or probs.max() > 1):
+        raise AssertionError(f"avs train eval step: launches {counts} (expected "
+                             f"{AVS_PER_FORWARD}), masks {tuple(probs.shape)} or outside [0, 1]")
+    print(f"avs train eval step: B={AVS_TRAIN_BATCH}, float32, masks {tuple(probs.shape)} in "
+          f"[{float(probs.min()):.4f}, {float(probs.max()):.4f}], launches {counts}", flush=True)
+    del probs, batches, step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_avs_train_") as tmp:
+        path = str(Path(tmp) / "s4_best.npz")
+        t0 = time.perf_counter()
+        ckpt.save_train_state(path, params=avs_train.merge_params(tr, fr), state=state,
+                              opt_state=opt_state, rng_state=gen.get_state(),
+                              step=opt_state["gradient_step"])
+        size = Path(path).stat().st_size
+        lp, ls = ckpt.load_params_and_state(path)
+        dt = time.perf_counter() - t0
+    del tr, fr, state, opt_state, opt
+    torch.cuda.empty_cache()
+    eng = AVSInferenceEngine(cfg, *from_jax(lp, ls, cfg, device=device), batch_size=BATCH,
+                             device=device)
+    del lp, ls
+    rs = np.random.RandomState(31)
+    T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.mask_size
+    wave = (np.clip(0.3 * rs.randn(BATCH, T, L), -1, 1) * 32767).astype(np.int16)
+    frames = rs.randint(0, 256, (BATCH, T, S, S, 3), dtype=np.uint8)
+    reset_launch_counts()
+    masks = eng.forward_batch(wave, frames).cpu()
+    counts = launch_counts()
+    if counts != AVS_PER_FORWARD or tuple(masks.shape) != (BATCH * T, S, S):
+        raise AssertionError(f"avs train serve: launches {counts} (expected {AVS_PER_FORWARD}) "
+                             f"or masks {tuple(masks.shape)}")
+    print(f"avs train serve: train state of {size / 1e9:.3f} GB saved and read in {dt:.1f} s; a "
+          f"bf16 AVSInferenceEngine on it answers {BATCH} clips: uint8 masks "
+          f"{tuple(masks.shape)}, mean {float(masks.float().mean()) / 255:.4f}, launches {counts}",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_avs_main_") as tmp:
+        result, size, test_line, dt = avs_main_once(cfg, tmp)
+    print(f"avs main: avs_main.main(--mode train --task s4 --epochs 1 --batch-size "
+          f"{AVS_TRAIN_BATCH}) over {AVS_MAIN_VIDEOS} videos on disk, on the card by default, in "
+          f"{dt:.1f} s: s4_best.npz of {size / 1e9:.3f} GB saved; {test_line}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"avs train: phase 9 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", action="append", choices=sorted(SOURCES) + ["avs"],
+    ap.add_argument("--only", action="append", choices=sorted(SOURCES) + ["avs", "avs_train"],
                     help="check and time only this kernel (repeatable), or run only phase "
-                         "8 (avs); skips the other phases")
+                         "8 (avs) or 9 (avs_train); skips the other phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1854,6 +2205,8 @@ def main() -> int:
     if args.only:
         if "avs" in args.only:
             run_avs()
+        if "avs_train" in args.only:
+            run_avs_training()
         print(json.dumps(kernels_line(rows, {name: None for name in SOURCES})))
         print(card)
         print(f"partial run ({', '.join(args.only)}): no ok line", flush=True)
@@ -1868,6 +2221,7 @@ def main() -> int:
     print(f"int8: phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
     counts["int8_linear"] = int8_counts["int8_linear"]  # K4's main path is phase 7
     run_avs()
+    run_avs_training()
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -101,12 +101,15 @@ class S4Dataset:
         return out
 
 
-def synthetic_batch(batch_size: int, *, img_size=224, seed=0, mask_frames=1):
-    """A seeded AVS batch: images in [0, 1), waves of 1 s, binary masks."""
+def synthetic_batch(batch_size: int, *, img_size=224, seed=0, mask_frames=1,
+                    num_frames=NUM_FRAMES, sr=SR):
+    """A seeded AVS batch: images in [0, 1), waves of `sr` samples a frame,
+    binary masks ((B, S, S, 1) for one mask frame, else (B * mask_frames, S,
+    S, 1))."""
     rs = np.random.RandomState(seed)
     return {
-        "image": rs.rand(batch_size, NUM_FRAMES, img_size, img_size, 3).astype(np.float32),
-        "wave": rs.randn(batch_size, NUM_FRAMES, SR).astype(np.float32) * 0.1,
+        "image": rs.rand(batch_size, num_frames, img_size, img_size, 3).astype(np.float32),
+        "wave": rs.randn(batch_size, num_frames, sr).astype(np.float32) * 0.1,
         "mask": (rs.rand(batch_size * mask_frames if mask_frames > 1 else batch_size,
                          img_size, img_size, 1) > 0.5).astype(np.float32),
     }

@@ -81,15 +81,25 @@ def init_avs_model(cfg: AVSModelConfig, *, seed: int = 0, device=None):
     return params, state
 
 
-def forward(params, state, images, wave, cfg: AVSModelConfig, *, kernels=True, int8_attn=False,
-            gelu="exact", device=None):
-    """Eval forward. images: (B, T, H, W, 3) at `mask_size`; wave: (B, T, L);
-    tensors or arrays, moved to `device` (None: the card), where `params`
-    must lie. `kernels`, `int8_attn` and `gelu` as `models.ave.forward`
-    takes them (the AVS-variant adapters never run K3, as in the JAX
-    package). Returns {"pred" (B*T, mask_size, mask_size, 1) logits,
-    "feature_map_list" (the 4 maps after TPAVI), "a_fea_list" (the aligned
-    audio (B, T, channel) of each TPAVI stage, else None)}."""
+def forward(params, state, images, wave, cfg: AVSModelConfig, *, train=False, kernels=True,
+            int8_attn=False, gelu="exact", device=None, gen=None, mixup_lambda=None,
+            remat_policy="full"):
+    """images: (B, T, H, W, 3) at `mask_size`; wave: (B, T, L); tensors or
+    arrays, moved to `device` (None: the card), where `params` must lie.
+    `kernels`, `int8_attn` and `gelu` as `models.ave.forward` takes them (the
+    AVS-variant adapters never run K3, as in the JAX package). Outputs:
+    {"pred" (B*T, mask_size, mask_size, 1) logits, "feature_map_list" (the 4
+    maps after TPAVI), "a_fea_list" (the aligned audio (B, T, channel) of
+    each TPAVI stage, else None)}.
+
+    Eval returns the outputs. `train=True` returns (outputs, new state): bn0
+    and each TPAVI BN on the batch's statistics, their new running stats in
+    the new state, and no kernel, whatever `kernels` says; `gen`, a
+    torch.Generator on `device`, draws SpecAugment, drop_path and the head's
+    dropout (None: none of them); `mixup_lambda` (B*T,) mixes the log-mel
+    maps; `remat_policy` is the interleave's checkpointing ("full", "dots"
+    or "none"); TPAVI and the decoder keep their activations, as in the JAX
+    package."""
     if gelu not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu!r} not in {GELU_MODES}")
     device = resolve_device(device)
@@ -99,12 +109,17 @@ def forward(params, state, images, wave, cfg: AVSModelConfig, *, kernels=True, i
     wave = torch.as_tensor(wave, device=device)
     if cfg.compute_dtype != torch.float32:
         wave = wave.to(cfg.compute_dtype)
+    if mixup_lambda is not None:
+        mixup_lambda = torch.as_tensor(mixup_lambda, device=device)
+    gen = gen if train else None
     B, T = images.shape[0], images.shape[1]
     imgs = dsp.resize_2d(images.reshape((B * T,) + tuple(images.shape[2:])),
                          cfg.swin.img_size, cfg.swin.img_size, kernel="cubic",
                          align_corners=False)
-    feats, _ = I.forward(params, state, wave.reshape(B * T, -1), imgs, cfg, kernels=kernels,
-                         int8_attn=int8_attn, gelu=gelu, return_stage_taps=True)
+    feats, new_state = I.forward(params, state, wave.reshape(B * T, -1), imgs, cfg,
+                                 kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
+                                 train=train, gen=gen, mixup_lambda=mixup_lambda,
+                                 remat_policy=remat_policy, return_stage_taps=True)
 
     audio_feature = linear(params["audio_linear"], feats["f_a"][:, 0, :].reshape(B, T, -1))
     maps = []
@@ -114,19 +129,26 @@ def forward(params, state, images, wave, cfg: AVSModelConfig, *, kernels=True, i
         sz = cfg.scale_sizes[i]
         maps.append(dsp.resize_2d(x, sz, sz, kernel="cubic", align_corners=False))
     maps, audio_flat = avs_head.avs_temporal_attention(params["temporal_attn"], maps,
-                                                       audio_feature, num_frames=T)
+                                                       audio_feature, num_frames=T,
+                                                       train=train, gen=gen)
 
     a_fea_list = [None] * 4
+    new_state["tpavi"] = dict(state["tpavi"])
     for i in cfg.tpavi_stages:
         name = f"tpavi_b{i + 1}"
         x5 = maps[i].reshape((B, T) + tuple(maps[i].shape[1:]))
         acc, count = torch.zeros_like(maps[i]), 0
+        # with both flags, each call starts from the old BN state and the
+        # audio one's update is kept, as in the JAX package
         if cfg.tpavi_vv_flag:
-            z, _, _ = TP.tpavi(params["tpavi"][name], state["tpavi"][name], x5, None)
+            z, _, new_state["tpavi"][name] = TP.tpavi(params["tpavi"][name],
+                                                      state["tpavi"][name], x5, None,
+                                                      train=train)
             acc, count = acc + z.reshape(maps[i].shape), count + 1
         if cfg.tpavi_va_flag:
-            z, a_fea_list[i], _ = TP.tpavi(params["tpavi"][name], state["tpavi"][name], x5,
-                                           audio_flat.reshape(B, T, -1))
+            z, a_fea_list[i], new_state["tpavi"][name] = TP.tpavi(
+                params["tpavi"][name], state["tpavi"][name], x5, audio_flat.reshape(B, T, -1),
+                train=train)
             acc, count = acc + z.reshape(maps[i].shape), count + 1
         maps[i] = acc / count
 
@@ -139,4 +161,5 @@ def forward(params, state, images, wave, cfg: AVSModelConfig, *, kernels=True, i
     y = dsp.resize_2d(y, cfg.mask_size, cfg.mask_size, kernel="linear", align_corners=False)
     y = torch.relu(conv2d(params["out_conv2"], y))
     pred = conv2d(params["out_conv3"], y)
-    return {"pred": pred, "feature_map_list": maps, "a_fea_list": a_fea_list}
+    out = {"pred": pred, "feature_map_list": maps, "a_fea_list": a_fea_list}
+    return (out, new_state) if train else out

@@ -6,12 +6,16 @@ scales the map, and the mean of the 4 video gates scales the audio
 feature. Dims generalize as channel / channel // 2 / channel, so tiny
 configurations shrink coherently. The per-scale decoders are built (they
 are in the checkpoint) and never called, as in the JAX package.
+
+In training, each scale's `v` goes through dropout (0.2, as AVE's after
+v_fc) drawn from an explicit generator; the encoder layers draw none, as
+in the JAX package, whose AVS head passes them no rng.
 """
 from __future__ import annotations
 
 import torch
 
-from ...ops.basic import Init, linear, linear_init
+from ...ops.basic import Init, dropout, linear, linear_init
 from ...ops.rnn import bilstm, bilstm_init
 from . import ave as ave_heads
 
@@ -50,13 +54,18 @@ def _encode(p, x):
     return x
 
 
-def avs_temporal_attention(params, feature_maps, audio_feature, *, num_frames=5, gamma=0.05):
+def avs_temporal_attention(params, feature_maps, audio_feature, *, num_frames=5, gamma=0.05,
+                           train=False, gen=None):
     """feature_maps: 4 maps (B*T, H_i, W_i, C); audio_feature (B, T, C/2).
-    Eval. Returns (the gated maps, the gated audio (B*T, C/2))."""
+    Training with `gen`, a torch.Generator: dropout on each scale's `v`,
+    scale by scale; without it, the eval computation. Returns (the gated
+    maps, the gated audio (B*T, C/2))."""
     B, T = audio_feature.shape[0], num_frames
     new_maps, video_gates = [], []
     for p, fm in zip(params["scales"], feature_maps):
         v = torch.relu(linear(p["v_fc"], fm.mean((1, 2)).reshape(B, T, -1)))
+        if gen is not None:
+            v = dropout(gen, v, ave_heads.V_DROP, train)
         a_seq = bilstm(p["audio_rnn"], audio_feature).transpose(0, 1)     # (T, B, C)
         v_seq = bilstm(p["visual_rnn"], v).transpose(0, 1)                 # (T, B, 2C)
         audio_gate = torch.sigmoid(linear(p["audio_gated"], _encode(p["audio_encoder"], a_seq)))

@@ -4,7 +4,9 @@ The port keeps the JAX tree: the same nested dict keys and list lengths, and
 the same leaf shapes (linear kernels (in, out), grouped kernels
 (g, in/g, out/g), patch embed (P, P, C, E)). `from_jax` walks the port's own
 tree of shapes (built on the "meta" device) beside the given one, so a
-missing, extra or misshapen leaf raises instead of loading silently.
+missing, extra or misshapen leaf raises instead of loading silently. A
+subtree without leaves (the AVS adapters' states: no BN) may be absent, as
+a checkpoint bundle of either package leaves it.
 """
 from __future__ import annotations
 
@@ -15,16 +17,19 @@ from .configs import AVEModelConfig, AVSModelConfig
 from .device import resolve_device
 from .models.ave import init_ave_model
 from .models.avs import init_avs_model
+from .utils.tree import tree_leaves, tree_map
 
 
 def _convert(ref, src, path, device):
     if isinstance(ref, dict):
         if not isinstance(src, dict):
             raise ValueError(f"{path}: expected a dict, got {type(src).__name__}")
-        missing, extra = sorted(set(ref) - set(src)), sorted(set(src) - set(ref))
+        missing = sorted(k for k in set(ref) - set(src) if tree_leaves(ref[k]))
+        extra = sorted(set(src) - set(ref))
         if missing or extra:
             raise ValueError(f"{path}: missing keys {missing}, unconsumed keys {extra}")
-        return {k: _convert(ref[k], src[k], f"{path}/{k}", device) for k in ref}
+        return {k: _convert(ref[k], src[k], f"{path}/{k}", device) if k in src
+                else tree_map(lambda t: t, ref[k]) for k in ref}
     if isinstance(ref, list):
         if not isinstance(src, (list, tuple)) or len(src) != len(ref):
             raise ValueError(f"{path}: expected a list of {len(ref)}")
