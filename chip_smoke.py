@@ -111,16 +111,62 @@ Phases, each fatal on failure:
      "train", "--task", "s4", "--epochs", "1", ...])` once, on the card by
      default, over an on-disk tree with train and test splits: it must save
      `s4_best.npz` and print a test mIoU and F-score in [0, 1].
+  10. serve the AVVP model at full width (AVVPModelConfig(): the AVE towers
+     and 48 adapters, the slim temporal attention and the grouping heads at
+     dim 128, depths 3/3/6): a state dict synthesized from the key census of
+     DG-SCT's MGN_Net checkpoint goes through `convert_avvp_model` (0
+     unexplained keys) and `from_jax` into a bf16 AVVPInferenceEngine (B=2,
+     chunk=2), which streams 7 clips of an on-disk LLP tree (JPEG frames at
+     192, .npy waves of 10 x 32000, r2plus1d features (10, 512)) through
+     `stream_probs`: launches 4 x (K1/K2/K3/K4 = 2/34/48/0), clip
+     probabilities (7, 25) in [0, 1], frame probabilities (7, 10, 25) in
+     [0, 2], ids in dataset order; in float32 the engine with kernels
+     against the plain one (launches 2/34/48/0 a forward, each K1, K2 and K3
+     call against the plain version on its own input (TOL); the HAN's hard
+     assignment: its smallest top-1/top-2 logit gap beside the kernels'
+     largest logit change, and no argmax flipped; AVVP_F32_TOL of the five
+     outputs' largest value, beside the plain path's own move under a 1e-6
+     relative change of its inputs and the readings of two faults planted
+     in front of K3, which the bound must catch); clips/s of `stream_probs`
+     over 16 in-memory clips in two wire formats (uint8 frames with int16
+     waves; LLPDataset's float32 items), two rounds each; one profiled
+     forward (the grouping heads and the temporal gates as their own
+     groups) and its peak memory; `calibrate_avvp` on a seeded B=2 batch
+     and an int8_towers engine (launches 34/2/48/142 a forward, drift
+     against bf16) and each K4 call of a float32 int8 forward against its
+     plain version. The bounds of this phase are checked once every reading
+     is printed;
+  11. train the AVVP model at full width (AVVPModelConfig(), random weights
+     from seed 0, the adapters' gates and the class tokens set from seed 1)
+     in float32, TF32 off, at the recipe's step (B=8 clips: 80 frames and 80
+     audio clips of 1 s, accum 1, Adam at 5e-4, remat "full"): 3 mini-steps
+     on seeded synthetic batches with a generator (SpecAugment, drop_path
+     and the HAN's Gumbel noise on), each loss finite, every trainable leaf
+     changed after them (the forward reads each), every frozen leaf
+     bit-identical, the BN state of bn0 and the adapters moved, no kernel
+     launched; each mini-step's time and the peak memory (`avvp train:`
+     lines); one profiled mini-step; one mini-step of B=2 with remat "none"
+     (float32 B=8 would not fit); the eval step on the trained weights
+     (launches 2/34/0/0); `avvp_main.main(["--mode", "train", "--epochs",
+     "1", ...])` once, on the card by default, over an on-disk LLP tree of
+     8 videos: it must save `MGN_Net.npz` and report F1 in [0, 100]; and that
+     train state loaded into a bf16 AVVPInferenceEngine, which answers 2
+     clips (2/34/48/0).
 It then prints the kernels line (launches from phase 4, K4's from phase 7),
 the card line and, last, the ok line.
 
     python3 chip_smoke.py --only adapter_bottleneck   # phases 1-3 for K3 alone
     python3 chip_smoke.py --only avs                  # phases 1, 2 and 8
     python3 chip_smoke.py --only avs_train            # phases 1, 2 and 9
+    python3 chip_smoke.py --only avvp                 # phases 1, 2 and 10
+    python3 chip_smoke.py --only avvp_train           # phases 1, 2 and 11
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 to 9 (`--only int8_linear` for K4); `--only avs` runs phase 8 alone
-and `--only avs_train` phase 9. Such a run prints no ok line.
+phases 4 to 11 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
+`avvp` and `avvp_train` run phase 8, 9, 10 or 11 alone. Such a run prints no
+ok line. Phase 10's K1-K3 shapes are phase 4's (20 frames and 20 audio clips
+a forward; a 1 s wave is resized to the same log-mel image), which phase 3
+checks and times.
 """
 from __future__ import annotations
 
@@ -611,6 +657,9 @@ KERNEL_GROUPS = (("K1", ("window_attention_kernel",)),
                  ("memcpy", ("memcpy", "memset")))
 
 
+RANGES = set()  # the labels of `annotate`'s profiler ranges
+
+
 def kernel_group(name: str) -> str:
     """The first group of KERNEL_GROUPS whose key is in the kernel's name."""
     low = name.lower()
@@ -643,7 +692,10 @@ def profile_run(fn, what, tag, host_ops=True, op_group=None, record_shapes=False
     with profile(activities=activities, record_shapes=record_shapes) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a profiler range (`annotate`) also shows on the device's timeline as one
+    # span over its kernels: not device work
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False) and e.name not in RANGES]
     if not dev:
         print(f"{tag}: the profiler recorded no device time", flush=True)
         return {}
@@ -1548,16 +1600,11 @@ class Nudged:
         return item
 
 
-class intercept:
-    """Within the block, every call of K1 or K2 (`kernel`) from the model's
-    attention (`ops.windows`) goes through `wrap(kernel's wrapper)`."""
+class patched:
+    """Within the block, `module.name` is `wrap(module.name)`."""
 
-    ATTR = {"window_attention": "window_attention", "block_attention": "fused_attn_half_block"}
-
-    def __init__(self, kernel, wrap):
-        from dg_sct_tpu_torch.ops import windows
-
-        self.mod, self.attr, self.wrap = windows, self.ATTR[kernel], wrap
+    def __init__(self, module, name, wrap):
+        self.mod, self.attr, self.wrap = module, name, wrap
 
     def __enter__(self):
         self.real = getattr(self.mod, self.attr)
@@ -1567,10 +1614,27 @@ class intercept:
         setattr(self.mod, self.attr, self.real)
 
 
+KERNEL_CALLERS = {  # where the model calls each kernel's wrapper
+    "window_attention": ("dg_sct_tpu_torch.ops.windows", "window_attention"),
+    "block_attention": ("dg_sct_tpu_torch.ops.windows", "fused_attn_half_block"),
+    "adapter_bottleneck": ("dg_sct_tpu_torch.ops.kernels.adapter_bottleneck", "bottleneck_rows")}
+
+
+def intercept(kernel, wrap):
+    """Every call of K1, K2 or K3 (`kernel`) from the model (K1 and K2 from
+    its attention, `ops.windows`; K3 from the adapters' `fused_bottleneck`)
+    goes through `wrap(kernel's wrapper)` within the block."""
+    import importlib
+
+    module, name = KERNEL_CALLERS[kernel]
+    return patched(importlib.import_module(module), name, wrap)
+
+
 def planted(kernel, fault):
-    """K1 or K2 handed its relative-position bias through `fault` (a value of
-    PLANTED); the kernel itself still launches."""
-    pos = {"window_attention": 3, "block_attention": 5}[kernel]
+    """K1 or K2 handed its relative-position bias, or K3 its down weights,
+    through `fault` (a value of PLANTED or K3_PLANTED); the kernel itself
+    still launches."""
+    pos = {"window_attention": 3, "block_attention": 5, "adapter_bottleneck": 1}[kernel]
 
     def wrap(real):
         def faulty(*args, **kw):
@@ -1583,13 +1647,16 @@ def planted(kernel, fault):
 
 
 def side_by_side(kernel, calls):
-    """Each call of K1 or K2 also runs the plain version on the same inputs;
-    (max abs err, error/tolerance) of each goes to `calls`, on the card."""
+    """Each call of K1, K2 or K3 also runs the plain version on the same
+    inputs; (max abs err, error/tolerance) of each goes to `calls`, on the
+    card."""
+    from dg_sct_tpu_torch.ops.kernels import adapter_bottleneck as K3
     from dg_sct_tpu_torch.ops.kernels import block_attention as K2
     from dg_sct_tpu_torch.ops.kernels import window_attention as K1
 
     plain = {"window_attention": K1.window_attention_plain,
-             "block_attention": K2.fused_attn_half_block_plain}[kernel]
+             "block_attention": K2.fused_attn_half_block_plain,
+             "adapter_bottleneck": K3.bottleneck_rows_plain}[kernel]
 
     def wrap(real):
         def paired(*args, **kw):
@@ -1623,11 +1690,11 @@ def mean_err(got, ref):
     return float(np.abs(got - ref).mean() / max(np.abs(ref).mean(), 1e-12))
 
 
-def read_planted(kernel, run, ref, bound, what, bad, stat=spread_err):
-    """`run()` under each PLANTED fault in front of `kernel`, read against
-    `ref` by `stat`; a reading at or below `bound` goes to `bad` (the bound
-    would pass that fault)."""
-    for name, fault in PLANTED.items():
+def read_planted(kernel, run, ref, bound, what, bad, stat=spread_err, faults=PLANTED):
+    """`run()` under each of `faults` in front of `kernel`, read against `ref`
+    by `stat`; a reading at or below `bound` goes to `bad` (the bound would
+    pass that fault)."""
+    for name, fault in faults.items():
         with planted(kernel, fault):
             out = run()
         err = stat(out, ref)
@@ -2169,11 +2236,570 @@ def run_avs_training(cfg=None, device="cuda"):
     print(f"avs train: phase 9 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: AVVP serving at full width
+# ---------------------------------------------------------------------------
+
+AVVP_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_avvp_mgn.json"
+AVVP_PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48,
+                    "int8_linear": 0}  # the AVE adapters and towers: AVVP's take K3 too
+AVVP_INT8_PER_FORWARD = {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 48,
+                         "int8_linear": 142}
+AVVP_SEGMENT = 32000      # LLPDataset's wave: 1 s of 32 kHz audio a segment
+AVVP_STREAM_CLIPS = 16
+AVVP_INT8_TOWERS = ("swin", "htsat")  # what the AVVP engine's int8_towers quantizes
+# the f32 engine with kernels against the plain one, max |delta| over max
+# |value| of the five outputs together: above the plain path's own move
+# under a 1e-6 relative change of its inputs and the sound kernels' reading
+# (printed beside), below the readings of the faults K3_PLANTED in front of
+# K3 (readings in PERF.md, section 6, PR 11)
+AVVP_F32_TOL = 5e-4
+# known faults put in front of K3, on its down weights (g, C/g, go): as a
+# float32 kernel that staged them in bf16 would see them, and with the two
+# channel groups' weights swapped, as a kernel that indexed the groups wrong
+K3_PLANTED = {"down weights rounded to bf16": lambda w: w.to(torch.bfloat16).to(w.dtype),
+              "down weights' groups swapped": lambda w: w.flip(0).contiguous()}
+AVVP_OUTPUTS = ("global_prob", "a_prob", "v_prob", "a_frame_prob", "v_frame_prob")
+
+
+def write_llp_tree(root, videos, cfg, seed=0):
+    """An LLP tree: T JPEG frames at the towers' size a video, a float32 wave
+    of T x AVVP_SEGMENT, r2plus1d features (T, 512), and the label and
+    annotation csvs (every split lists every video)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    T, S = cfg.num_frames, cfg.swin.img_size
+    for d in ("frames", "audio", "st"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    cats = ["Speech", "Dog", "Cello", "Singing", "Car"]
+    labels, events = ["filename\tevent_labels"], ["filename\tonset\toffset\tevent_labels"]
+    for i, vid in enumerate(videos):
+        (root / "frames" / vid).mkdir()
+        for t in range(T):
+            Image.fromarray(rs.randint(0, 256, (S, S, 3), dtype=np.uint8)).save(
+                root / "frames" / vid / f"{t:08d}.jpg", quality=90)
+        np.save(root / "audio" / f"{vid}.npy",
+                np.clip(0.3 * rs.randn(T * AVVP_SEGMENT), -1, 1).astype(np.float32))
+        np.save(root / "st" / f"{vid}.npy", rs.randn(T, 512).astype(np.float32))
+        labels.append(f"{vid}\t{cats[i % 5]},{cats[(i + 2) % 5]}")
+        events.append(f"{vid}\t{i % 4}\t{i % 4 + 3}\t{cats[i % 5]}")
+    for name in ("AVVP_train.csv", "AVVP_val_pd.csv", "AVVP_test_pd.csv"):
+        (root / name).write_text("\n".join(labels) + "\n")
+    for name in ("AVVP_eval_audio.csv", "AVVP_eval_visual.csv"):
+        (root / name).write_text("\n".join(events) + "\n")
+    return root
+
+
+def llp_dataset(root, cfg):
+    from dg_sct_tpu_torch.data.avvp import LLPDataset
+
+    return LLPDataset(str(root / "AVVP_test_pd.csv"), frame_dir=str(root / "frames"),
+                      audio_dir=str(root / "audio"), st_dir=str(root / "st"),
+                      img_size=cfg.swin.img_size, num_frames=cfg.num_frames,
+                      segment_samples=AVVP_SEGMENT)
+
+
+class LLPClips:
+    """Seeded full-width LLP clips in memory in the serving wire format: an
+    int16 wave of T x AVVP_SEGMENT, uint8 frames, float32 r2plus1d features."""
+
+    def __init__(self, n, cfg, seed):
+        rs = np.random.RandomState(seed)
+        T, S = cfg.num_frames, cfg.swin.img_size
+        self.wave = (np.clip(0.3 * rs.randn(n, T, AVVP_SEGMENT), -1, 1) * 32767).astype(np.int16)
+        self.frames = rs.randint(0, 256, (n, T, S, S, 3), dtype=np.uint8)
+        self.st = rs.randn(n, T, 512).astype(np.float32)
+
+    def __len__(self):
+        return len(self.wave)
+
+    def __getitem__(self, i):
+        return {"wave": self.wave[i], "image": self.frames[i], "video_st": self.st[i],
+                "video": f"mem{i:08d}"}
+
+
+def stream_probs_all(eng, ds):
+    """stream_probs over the whole dataset -> ({output: (n, ...)}, video ids,
+    launch counts)."""
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = list(eng.stream_probs(ds))
+    return ({k: np.concatenate([p[k] for p, _ in out]) for k in AVVP_OUTPUTS},
+            [v for _, vids in out for v in vids], launch_counts())
+
+
+def flat(probs):
+    return np.concatenate([probs[k].ravel() for k in AVVP_OUTPUTS])
+
+
+def han_logits(logits):
+    """Within the block, the logits of every hard assignment (the HAN's, in
+    the default soft configuration) go to `logits`, on the card."""
+    from dg_sct_tpu_torch.models import grouping
+
+    def wrap(real):
+        def recorded(x, axis):
+            logits.append(x.detach().float().movedim(axis, -1))
+            return real(x, axis)
+        return recorded
+
+    return patched(grouping, "hard_softmax", wrap)
+
+
+def han_margin(plain, kern):
+    """(smallest top-1/top-2 logit gap of the plain path's HAN assignments,
+    largest |logit| change the kernels made, rows whose argmax flipped)."""
+    p = torch.cat([x.reshape(-1, x.shape[-1]) for x in plain])
+    k = torch.cat([x.reshape(-1, x.shape[-1]) for x in kern])
+    top2 = p.topk(2, dim=-1).values
+    return (float((top2[:, 0] - top2[:, 1]).min()), float((k - p).abs().max()),
+            int((p.argmax(-1) != k.argmax(-1)).sum()))
+
+
+def annotate(module, name, label):
+    """Within the block, each call of `module.name` runs under a profiler
+    range `label` (a host-op group of `profile_run`)."""
+    RANGES.add(label)
+
+    def wrap(real):
+        def ranged(*args, **kw):
+            with torch.profiler.record_function(label):
+                return real(*args, **kw)
+        return ranged
+
+    return patched(module, name, wrap)
+
+
+AVVP_HEAD_GROUPS = ("AVVP grouping heads", "AVVP temporal gates")
+
+
+def avvp_op_group(e):
+    """The AVVP profile's host-op groups: every kernel launched under the
+    grouping heads' or the slim temporal attention's range."""
+    op = e
+    while op is not None:
+        if op.name in AVVP_HEAD_GROUPS:
+            return op.name
+        op = op.cpu_parent
+    return None
+
+
+def import_avvp_census_model(cfg):
+    """The AVVP census state dict through the port's import path: converter,
+    key census (0 unexplained), `from_jax` onto the card."""
+    from dg_sct_tpu_torch.utils import torch_convert as TC
+    from dg_sct_tpu_torch.weights import from_jax
+
+    t0 = time.perf_counter()
+    sd = TC.track(census_state_dict(AVVP_CENSUS))
+    params, state = TC.convert_avvp_model(sd)
+    report = TC.census_report(sd, TC.AVVP_CKPT_IGNORED_PATTERNS)
+    if report["unexplained"]:
+        raise AssertionError(f"avvp census: unexplained keys {report['unexplained'][:10]}")
+    params, state = from_jax(params, state, cfg, device="cuda")
+    tokens = [float(params[k].abs().mean()) for k in ("audio_token", "visual_token")]
+    print(f"avvp import: {len(sd)} keys of {AVVP_CENSUS.name}: {len(report['consumed'])} "
+          f"consumed, {len(report['ignored'])} ignored, 0 unexplained; class tokens from the "
+          f"seed, mean |value| {tokens[0]:.4f} / {tokens[1]:.4f}; on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return params, state
+
+
+def run_avvp(device="cuda"):
+    """Phase 10: the census-built full-width AVVP model served through
+    `stream_probs` from an on-disk LLP tree (B=2, chunk=2, bf16), the float32
+    engine with kernels against the plain one (each K1, K2 and K3 call
+    against its plain version, the HAN's margin, faults planted in front of
+    K3), clips/s in two wire formats, a profiled forward, and int8 towers
+    (each K4 call of a float32 int8 forward against its plain version)."""
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import AVVPModelConfig
+    from dg_sct_tpu_torch.models import avvp, grouping
+    from dg_sct_tpu_torch.models.interleave import fold_adapters_eval
+    from dg_sct_tpu_torch.ops import quant
+    from dg_sct_tpu_torch.serve import AVVPInferenceEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = AVVPModelConfig()
+    params, state = import_avvp_census_model(cfg)
+    eng = AVVPInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device)
+    folded = [ap for k in eng.params["adapters"] for ap in eng.params["adapters"][k]]
+    eligible = sum(not {"bn1", "bn2", "gate"} & set(ap) for ap in folded)
+    print(f"avvp fold: {eligible} of the {len(folded)} folded adapters hold no bn1, bn2 or gate "
+          f"(K3 takes them)", flush=True)
+    if eligible != len(folded):
+        raise AssertionError("avvp fold: an adapter kept its BN or gate after fold_eval")
+    T, n_cls = cfg.num_frames, cfg.num_classes
+    forwards = -(-CLIPS // BATCH)
+    videos = [f"llp{i:08d}" for i in range(CLIPS)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_avvp_") as tmp:
+        ds = llp_dataset(write_llp_tree(Path(tmp), videos, cfg), cfg)
+        disk = [ds[i] for i in range(len(ds))]  # decoded once; the checks below reuse them
+    stream_probs_all(eng, disk)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probs, vids, counts = stream_probs_all(eng, disk)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * forwards for k, v in AVVP_PER_FORWARD.items()}
+    if counts != want:
+        raise AssertionError(f"avvp: launch counts {counts}, expected {want}")
+    shapes = {k: v.shape for k, v in probs.items()}
+    if (shapes != {"global_prob": (CLIPS, n_cls), "a_prob": (CLIPS, n_cls),
+                   "v_prob": (CLIPS, n_cls), "a_frame_prob": (CLIPS, T, n_cls),
+                   "v_frame_prob": (CLIPS, T, n_cls)}
+            or not all(np.isfinite(v).all() for v in probs.values())):
+        raise AssertionError(f"avvp: outputs {shapes} or non-finite")
+    clip = np.concatenate([probs[k].ravel() for k in ("global_prob", "a_prob", "v_prob")])
+    frame = np.concatenate([probs[k].ravel() for k in ("a_frame_prob", "v_frame_prob")])
+    # a frame probability is a clip's sigmoid times 1 + a softmax: in [0, 2]
+    if clip.min() < 0 or clip.max() > 1 or frame.min() < 0 or frame.max() > 2:
+        raise AssertionError("avvp: probabilities out of range")
+    if vids != videos:
+        raise AssertionError(f"avvp: video ids {vids[:3]}... not in dataset order")
+    print(f"avvp serve: {CLIPS} clips from disk (JPEG frames {cfg.swin.img_size}, .npy waves "
+          f"{T}x{AVVP_SEGMENT}, st (10, 512)) through stream_probs in {dt:.3f} s (B={BATCH}, "
+          f"chunk 2, bf16): clip probabilities (7, 25) in [{clip.min():.4f}, {clip.max():.4f}], "
+          f"frame probabilities (7, 10, 25) in [{frame.min():.4f}, {frame.max():.4f}]; ids in "
+          f"dataset order; launches {counts} ({forwards} forwards); peak memory "
+          f"{peak / 2**30:.3f} GiB; card {torch.cuda.get_device_name(0)}", flush=True)
+
+    # float32: the engine with kernels against the plain one on the same clips
+    bad = []  # bound checks, fatal at the end of the phase once every reading is printed
+    f32 = dict(batch_size=BATCH, chunk=2, device=device, compute_dtype=torch.float32)
+    plain = AVVPInferenceEngine(cfg, params, state, kernels=False, **f32)
+    kern = AVVPInferenceEngine(cfg, params, state, **f32)
+    plain_han, kern_han = [], []
+    with han_logits(plain_han):
+        ref, _, _ = stream_probs_all(plain, disk)
+    calls = {k: [] for k in ("window_attention", "block_attention", "adapter_bottleneck")}
+    with side_by_side("window_attention", calls["window_attention"]), \
+            side_by_side("block_attention", calls["block_attention"]), \
+            side_by_side("adapter_bottleneck", calls["adapter_bottleneck"]), \
+            han_logits(kern_han):
+        got, _, counts = stream_probs_all(kern, disk)
+    if counts != want:
+        raise AssertionError(f"avvp f32: launch counts {counts}, expected {want}")
+    for kernel, c in calls.items():
+        report_calls("avvp f32", kernel, c, bad)
+    margin, moved, flips = han_margin(plain_han, kern_han)
+    print(f"avvp f32: HAN hard assignment over {len(plain_han)} calls: smallest top-1/top-2 "
+          f"logit gap {margin:.3e} against the kernels' largest logit change {moved:.3e} (a "
+          f"flip needs the change to reach half the gap: bound {margin / 2:.3e}); rows whose "
+          f"argmax flipped: {flips}", flush=True)
+    if flips:
+        bad.append(f"avvp f32: the HAN's argmax flipped in {flips} rows between kernels and plain")
+    near, _, _ = stream_probs_all(plain, Nudged(disk, INT8_NUDGE, seed=21))
+    err, sens = spread_err(flat(got), flat(ref)), spread_err(flat(near), flat(ref))
+    print(f"avvp f32: kernels vs plain max |delta| / max |value| over the five outputs "
+          f"{err:.3e} (bound {AVVP_F32_TOL:g}), per output "
+          + ", ".join(f"{k} {np.abs(got[k] - ref[k]).max():.3e}" for k in AVVP_OUTPUTS)
+          + f"; the plain path moves {sens:.3e} with frames and wave changed by {INT8_NUDGE:g} "
+          f"(relative); launches {counts}", flush=True)
+    if not np.isfinite(flat(got)).all() or err > AVVP_F32_TOL:
+        bad.append(f"avvp f32: kernels and plain path disagree ({err:.3e})")
+    read_planted("adapter_bottleneck", lambda: flat(stream_probs_all(kern, disk)[0]), flat(ref),
+                 AVVP_F32_TOL, "avvp f32", bad, faults=K3_PLANTED)
+    del plain, kern, ref, got, near
+
+    # clips/s in two wire formats, and a profiled forward
+    clips = LLPClips(AVVP_STREAM_CLIPS, cfg, seed=13)
+    llp = [disk[i % CLIPS] for i in range(AVVP_STREAM_CLIPS)]  # LLPDataset's items, in memory
+    for fmt, data in (("uint8 frames, int16 wave", clips),
+                      ("LLPDataset's float32 normalized frames and float32 wave", llp)):
+        staged = BATCH * sum(data[0][k].nbytes for k in ("wave", "image", "video_st"))
+        for rnd in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream_probs_all(eng, data)
+            dt = time.perf_counter() - t0
+            print(f"avvp stream: {fmt} ({staged / 1e6:.3f} MB host to device a forward): run "
+                  f"{rnd}: {AVVP_STREAM_CLIPS} clips in {dt:.3f} s = "
+                  f"{AVVP_STREAM_CLIPS / dt:.3f} clips/s (B={BATCH}, chunk 2, bf16)", flush=True)
+    wave, frames, st = (np.stack([clips[0][k]] * BATCH) for k in ("wave", "image", "video_st"))
+    eng.forward_batch(wave, frames, st)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with annotate(grouping, "modality_trans", AVVP_HEAD_GROUPS[0]), \
+            annotate(avvp, "slim_temporal_attention", AVVP_HEAD_GROUPS[1]):
+        profile_run(lambda: eng.forward_batch(wave, frames, st),
+                    f"one AVVP forward of {BATCH} clips", "avvp profile", op_group=avvp_op_group)
+    print(f"avvp profile: peak memory of the profiled forward "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    # int8 towers with scales calibrated on a seeded batch
+    rs = np.random.RandomState(7)
+    on_card = lambda a: torch.as_tensor(a, device=device).to(torch.bfloat16)
+    cw = on_card((rs.randn(BATCH, T, AVVP_SEGMENT) * 0.1).astype(np.float32))
+    ci = on_card(rs.rand(BATCH, T, cfg.swin.img_size, cfg.swin.img_size, 3).astype(np.float32))
+    cst = on_card(rs.randn(BATCH, T, 512).astype(np.float32))
+    t0 = time.perf_counter()
+    scales = quant.calibrate_avvp(eng.params, eng.state, eng.cfg, cw, ci, cst, gelu=eng.gelu,
+                                  device=device)
+    print(f"avvp int8: calibrated {len(scales)} activation scales in "
+          f"{time.perf_counter() - t0:.3f} s (one plain bf16 forward of {BATCH} clips)",
+          flush=True)
+    del eng
+    q8 = AVVPInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device,
+                             int8_towers=True, act_scales=scales)
+    q_probs, _, counts = stream_probs_all(q8, disk)
+    want = {k: v * forwards for k, v in AVVP_INT8_PER_FORWARD.items()}
+    if counts != want or not np.isfinite(flat(q_probs)).all():
+        raise AssertionError(f"avvp int8: launches {counts} (expected {want}) or non-finite")
+    agree = float(((q_probs["global_prob"] >= 0.5) == (probs["global_prob"] >= 0.5)).mean())
+    print(f"avvp int8: launches {counts} ({forwards} forwards); drift against bf16 over {CLIPS} "
+          f"clips, max |delta|: " + ", ".join(f"{k} {np.abs(q_probs[k] - probs[k]).max():.4f}"
+                                               for k in AVVP_OUTPUTS)
+          + f"; clip-level decisions (global_prob >= 0.5) agreeing: {100.0 * agree:.2f}%",
+          flush=True)
+    del q8
+
+    # float32: each K4 call of the int8-towers forward against its plain version
+    fp, fs = fold_adapters_eval(params, state, cfg)
+    qp = quant.quantize_eval_params(fp, towers=AVVP_INT8_TOWERS, act_scales=scales)
+    del params, state, fp
+    item = lambda k: torch.as_tensor(np.stack([d[k] for d in disk[:BATCH]]), device=device)
+    wave, frames, st = item("wave"), item("image"), item("video_st")
+    n_calls, kerr = check_int8_calls(
+        qp, AVVP_INT8_TOWERS,
+        lambda t: avvp.forward(t, fs, wave, frames, st, cfg, kernels=True, device=device),
+        "avvp int8 f32")
+    print(f"avvp int8 f32: each of the {n_calls} K4 calls of a forward against the plain version "
+          f"on its own input: max abs err {kerr:.3e} (atol/rtol {TOL[torch.float32]})",
+          flush=True)
+    del fs, qp
+    torch.cuda.empty_cache()
+    print(f"avvp: phase 10 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: AVVP training at full width
+# ---------------------------------------------------------------------------
+
+AVVP_TRAIN_BATCH = 8     # avvp_main's --batch-size: 80 frames and 80 audio clips a mini-step
+AVVP_TRAIN_LR = 5e-4     # avvp_main's --lr
+AVVP_TRAIN_STEPS = 3
+AVVP_NONE_BATCH = 2      # remat "none": float32 B=8 would not fit in 80 GB
+AVVP_MAIN_VIDEOS = 8     # the entry point's tree: one mini-step of B=8, 8 videos scored
+
+
+def seeded_avvp_model(cfg, device="cuda"):
+    """Float32 (params, state) from seed 0 with the zero-init leaves that
+    would zero their branch set from seed 1: each adapter's gate and gate_av
+    in [0.2, 0.6], and the class tokens N(0, 0.5^2)."""
+    from dg_sct_tpu_torch.models import avvp
+    from dg_sct_tpu_torch.models.interleave import ADKEYS
+
+    params, state = avvp.init_avvp_model(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    for k in ADKEYS:
+        for ap in params["adapters"][k]:
+            for g in ("gate", "gate_av"):
+                ap[g] = torch.empty_like(ap[g]).uniform_(0.2, 0.6, generator=gen)
+    for k in ("audio_token", "visual_token"):
+        params[k] = 0.5 * torch.randn(params[k].shape, device=device, generator=gen)
+    return params, state
+
+
+def avvp_train_batches(cfg, n, batch, seed, device):
+    """`n` seeded synthetic batches of `batch` LLP clips (waves of
+    AVVP_SEGMENT a segment) on `device`."""
+    from dg_sct_tpu_torch.data.avvp import synthetic_batch
+
+    return [{k: torch.as_tensor(v, device=device) for k, v in synthetic_batch(
+        batch, img_size=cfg.swin.img_size, seed=seed + i, num_frames=cfg.num_frames,
+        sr=AVVP_SEGMENT).items()} for i in range(n)]
+
+
+def avvp_main_once(cfg, tmp):
+    """`avvp_main.main` in train mode, one epoch, on the card by default, over
+    a tree of AVVP_MAIN_VIDEOS videos -> (test summary, MGN_Net.npz's path,
+    seconds)."""
+    import contextlib
+    import io
+
+    from dg_sct_tpu_torch.train import avvp_main
+
+    root = write_llp_tree(Path(tmp), [f"trn{i:08d}" for i in range(AVVP_MAIN_VIDEOS)], cfg,
+                          seed=50)
+    save = root / "ckpt"
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        summary = avvp_main.main(
+            ["--mode", "train", "--epochs", "1", "--batch-size", str(AVVP_TRAIN_BATCH),
+             "--label-train", str(root / "AVVP_train.csv"),
+             "--label-val", str(root / "AVVP_val_pd.csv"),
+             "--label-test", str(root / "AVVP_test_pd.csv"), "--eval-csv-dir", str(root),
+             "--frames", str(root / "frames"), "--audio", str(root / "audio"),
+             "--st", str(root / "st"), "--save-dir", str(save)], cfg=cfg)
+    dt = time.perf_counter() - t0
+    best = save / "MGN_Net.npz"
+    if (not best.exists() or not summary
+            or not all(0.0 <= v <= 100.0 for v in summary.values())):
+        raise AssertionError(f"avvp main: no MGN_Net.npz, or no test report in range: {summary}, "
+                             f"{log.getvalue()[-500:]}")
+    return summary, best, dt
+
+
+def run_avvp_training(cfg=None, device="cuda"):
+    """Phase 11: `cfg` (None: the full-width AVVPModelConfig()) trained in
+    float32 at the recipe's step (B=8 clips, accum 1, Adam at 5e-4, remat
+    "full"): AVVP_TRAIN_STEPS mini-steps with a generator, the checks of
+    each; a profiled mini-step; a mini-step with remat "none" at B=2; the eval
+    step; the entry point once, and its saved train state served by a bf16
+    engine."""
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import AVVPModelConfig, TrainConfig
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.serve import AVVPInferenceEngine
+    from dg_sct_tpu_torch.train import avvp_train
+    from dg_sct_tpu_torch.utils import checkpoint as ckpt
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+    from dg_sct_tpu_torch.weights import from_jax
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = cfg or AVVPModelConfig()
+    params, state = seeded_avvp_model(cfg, device)
+    tr, fr = avvp_train.partition_params(params)
+    p0 = {p: t.cpu() for p, t in tree_paths(params)}  # on the host: not in the peak
+    s0 = {p: t.cpu() for p, t in tree_paths(state)}
+    del params
+    tcfg = TrainConfig(batch_size=AVVP_TRAIN_BATCH, lr=AVVP_TRAIN_LR, accum_steps=1)
+    opt = avvp_train.make_optimizer(tr, tcfg, steps_per_epoch=1)
+    opt_state = opt.init(tr)
+    step = avvp_train.make_train_step(cfg, opt, device=device, remat_policy="full")
+    batches = avvp_train_batches(cfg, AVVP_TRAIN_STEPS, AVVP_TRAIN_BATCH, seed=40, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    n_train = sum(t.numel() for _, t in tree_paths(tr))
+    print(f"avvp train: {'AVVPModelConfig()' if cfg == AVVPModelConfig() else cfg} in float32, "
+          f"TF32 off; seed 0, adapter gates and class tokens set from seed 1; "
+          f"B={AVVP_TRAIN_BATCH} clips ({AVVP_TRAIN_BATCH * cfg.num_frames} frames and audio "
+          f"clips of {AVVP_SEGMENT} samples), accum 1, Adam at {AVVP_TRAIN_LR:g}, remat full; "
+          f"{n_train / 1e6:.1f} M trainable parameters", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for i in range(AVVP_TRAIN_STEPS):
+        (tr, state, opt_state, m), dt = timed_step(step, (tr, fr, state, opt_state, batches[i],
+                                                          gen))
+        times.append(dt)
+        loss = float(m["loss"])
+        print(f"avvp train: mini-step {i + 1}: loss {loss:.4f}, {dt:.3f} s", flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"avvp train: mini-step {i + 1}: the loss is not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = launch_counts()
+    if counts != NO_LAUNCHES:
+        raise AssertionError(f"avvp train: the train steps launched kernels {counts}")
+    now = dict(tree_paths(avvp_train.merge_params(tr, fr)))
+    same = {p: torch.equal(now[p].cpu(), p0[p]) for p in p0}
+    frozen = [p for p in same if p[0] in ("swin", "htsat")]
+    trained = [p for p in same if p[0] not in ("swin", "htsat")]
+    # the AVVP forward reads every trainable leaf, so every one must move
+    unmoved = [p for p in trained if same[p]]
+    if unmoved or not all(same[p] for p in frozen):
+        raise AssertionError(f"avvp train: after {AVVP_TRAIN_STEPS} mini-steps, unmoved trainable "
+                             f"leaves {unmoved[:5]} or a frozen leaf changed")
+    bn = [(p, t) for p, t in tree_paths(state) if p[-1] in ("mean", "var")]
+    still = [p for p, t in bn if torch.equal(t.cpu(), s0[p])]
+    counts_bn = {int(t) for p, t in tree_paths(state) if p[-1] == "count"}
+    if still or counts_bn != {AVVP_TRAIN_STEPS}:
+        raise AssertionError(f"avvp train: BN state did not move: {still[:3]}, counts {counts_bn}")
+    print(f"avvp train: {AVVP_TRAIN_STEPS} mini-steps: " + ", ".join(f"{t:.3f}" for t in times)
+          + f" s; peak memory {peak:.3f} GiB; all {len(trained)} trainable leaves changed (the "
+          f"forward reads each; unmoved: {len(unmoved)}), {len(frozen)} frozen ones "
+          f"bit-identical; {len(bn)} BN stats of bn0 and the adapters moved, counts "
+          f"{AVVP_TRAIN_STEPS}; kernel launches {counts}; card {torch.cuda.get_device_name(0)}",
+          flush=True)
+    del p0, s0, now
+
+    groups = profile_run(lambda: step(tr, fr, state, opt_state, batches[0], gen),
+                         f"one mini-step of {AVVP_TRAIN_BATCH} clips, remat full",
+                         "avvp train profile", host_ops=False)
+    unprofiled = float(np.median(times[1:]))
+    print(f"avvp train profile: {sum(groups.values()):.3f} ms of device time against the "
+          f"unprofiled mini-steps' median {unprofiled:.3f} s: "
+          f"{100.0 * (1.0 - sum(groups.values()) / 1e3 / unprofiled):.1f}% idle", flush=True)
+
+    none = avvp_train.make_train_step(cfg, opt, device=device, remat_policy="none")
+    small = {k: v[:AVVP_NONE_BATCH] for k, v in batches[0].items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, _, m), dt = timed_step(none, (tr, fr, state, opt_state, small,
+                                         torch.Generator(device=device).manual_seed(5)))
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError("avvp train remat none: the loss is not finite")
+    print(f"avvp train remat none: one mini-step of B={AVVP_NONE_BATCH} clips in {dt:.3f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del none, small
+
+    estep = avvp_train.make_eval_step(cfg, device=device)
+    reset_launch_counts()
+    out = estep(tr, fr, state, batches[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != EVAL_LAUNCHES or not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        raise AssertionError(f"avvp train eval step: launches {counts} (expected "
+                             f"{EVAL_LAUNCHES}) or non-finite outputs")
+    print(f"avvp train eval step: B={AVVP_TRAIN_BATCH}, float32, global_prob in "
+          f"[{float(out['global_prob'].min()):.4f}, {float(out['global_prob'].max()):.4f}], "
+          f"launches {counts}", flush=True)
+    del out, batches, step, tr, fr, state, opt_state, opt
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_avvp_main_") as tmp:
+        summary, best, dt = avvp_main_once(cfg, tmp)
+        size = best.stat().st_size
+        print(f"avvp main: avvp_main.main(--mode train --epochs 1 --batch-size "
+              f"{AVVP_TRAIN_BATCH}) over {AVVP_MAIN_VIDEOS} videos on disk, on the card by "
+              f"default, in {dt:.1f} s: MGN_Net.npz of {size / 1e9:.3f} GB saved; test "
+              f"segment_type_avg {summary['segment_type_avg']:.2f}, event_type_avg "
+              f"{summary['event_type_avg']:.2f}", flush=True)
+        t0 = time.perf_counter()
+        lp, ls = ckpt.load_params_and_state(str(best))
+        dt = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    eng = AVVPInferenceEngine(cfg, *from_jax(lp, ls, cfg, device=device), batch_size=BATCH,
+                              device=device)
+    del lp, ls
+    clips = LLPClips(BATCH, cfg, seed=31)
+    wave, frames, st = (np.stack([clips[i][k] for i in range(BATCH)])
+                        for k in ("wave", "image", "video_st"))
+    reset_launch_counts()
+    out = eng.forward_batch(wave, frames, st)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != AVVP_PER_FORWARD or not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        raise AssertionError(f"avvp train serve: launches {counts} (expected {AVVP_PER_FORWARD}) "
+                             f"or non-finite outputs")
+    print(f"avvp train serve: the entry point's train state of {size / 1e9:.3f} GB read in "
+          f"{dt:.1f} s; a bf16 AVVPInferenceEngine on it (adapters folded) answers {BATCH} clips: "
+          f"global_prob mean {float(out['global_prob'].mean()):.4f}, launches {counts}",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"avvp train: phase 11 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", action="append", choices=sorted(SOURCES) + ["avs", "avs_train"],
+    ap.add_argument("--only", action="append",
+                    choices=sorted(SOURCES) + ["avs", "avs_train", "avvp", "avvp_train"],
                     help="check and time only this kernel (repeatable), or run only phase "
-                         "8 (avs) or 9 (avs_train); skips the other phases")
+                         "8 (avs), 9 (avs_train), 10 (avvp) or 11 (avvp_train); skips the "
+                         "other phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2207,6 +2833,10 @@ def main() -> int:
             run_avs()
         if "avs_train" in args.only:
             run_avs_training()
+        if "avvp" in args.only:
+            run_avvp()
+        if "avvp_train" in args.only:
+            run_avvp_training()
         print(json.dumps(kernels_line(rows, {name: None for name in SOURCES})))
         print(card)
         print(f"partial run ({', '.join(args.only)}): no ok line", flush=True)
@@ -2222,6 +2852,8 @@ def main() -> int:
     counts["int8_linear"] = int8_counts["int8_linear"]  # K4's main path is phase 7
     run_avs()
     run_avs_training()
+    run_avvp()
+    run_avvp_training()
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

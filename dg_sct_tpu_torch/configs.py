@@ -1,7 +1,7 @@
-"""Immutable configuration dataclasses of the AVE and AVS models and of AVE
+"""Immutable configuration dataclasses of the AVE, AVS and AVVP models and of
 training.
 
-A copy of the AVE and AVS parts of `dg_sct_tpu/configs.py` with torch dtypes: the
+A copy of the AVE, AVS and AVVP parts of `dg_sct_tpu/configs.py` with torch dtypes: the
 field names, defaults and the two static layout helpers are the same, so a
 configuration means the same model in both packages.
 """
@@ -183,6 +183,27 @@ class AVSModelConfig:
     tpavi_va_flag: bool = True
     # the decoder's grid per stage (PVT-v2's resolutions at a 224 input)
     scale_sizes: tuple = (56, 28, 14, 7)
+    compute_dtype: Any = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class AVVPModelConfig:
+    """AVVP model (DG-SCT's `MGN_Net`): the AVE towers and adapters, then
+    projections to `dim`, the slim temporal attention, the r2plus1d fusion
+    and the class-aware grouping heads (audio with HAN, visual, and the
+    cross-modal one; depths 3/3/6) over `num_classes` class tokens. The
+    assignments are "soft" or "hard"."""
+    swin: SwinV2Config = dataclasses.field(default_factory=SwinV2Config)
+    htsat: HTSATConfig = dataclasses.field(default_factory=HTSATConfig)
+    adapter: AdapterConfig = dataclasses.field(default_factory=AdapterConfig)
+    num_frames: int = 10
+    num_classes: int = 25
+    dim: int = 128
+    depth_aud: int = 3
+    depth_vis: int = 3
+    depth_av: int = 6
+    unimodal_assign: str = "soft"
+    crossmodal_assign: str = "soft"
     compute_dtype: Any = torch.float32
 
 

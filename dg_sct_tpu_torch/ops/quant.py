@@ -1,6 +1,6 @@
-"""Int8 serving of the AVE and AVS models: static per-column int8 weights,
-symmetric int8 activations, int32 sums (`dg_sct_tpu/ops/quant.py`, AVE and
-AVS parts).
+"""Int8 serving of the AVE, AVS and AVVP models: static per-column int8
+weights, symmetric int8 activations, int32 sums (`dg_sct_tpu/ops/quant.py`,
+AVE, AVS and AVVP parts).
 
   * weights: per-output-column absmax scales, quantized once at load
     (`quantize_linear`, `quantize_tree`, `quantize_eval_params`);
@@ -231,11 +231,21 @@ def calibrate_avs(params, state, cfg, wave, images, *, towers=("swin", "htsat"),
         p, state, images, wave, cfg, kernels=False, gelu=gelu, device=device))
 
 
+def calibrate_avvp(params, state, cfg, wave, images, video_st, *, towers=("swin", "htsat"),
+                   min_dim=192, gelu="exact", device=None):
+    """`calibrate_ave` for the AVVP eval forward (`models.avvp.forward`, which
+    also takes the r2plus1d features)."""
+    from ..models import avvp
+
+    return _calibrate(params, towers, min_dim, lambda p: avvp.forward(
+        p, state, wave, images, video_st, cfg, kernels=False, gelu=gelu, device=device))
+
+
 def quantize_eval_params(params, *, towers=("swin", "htsat"), min_dim=192, act_scales=None):
-    """A full AVE or AVS param tree with the eligible linears of `towers`
+    """A full AVE, AVS or AVVP param tree with the eligible linears of `towers`
     quantized (heads stay float). Run it after `fold_adapters_eval` and after
     the cast to the serving type. With `act_scales` from `calibrate_ave` (or
-    `calibrate_avs`), the activations take static scales."""
+    `calibrate_avs`, `calibrate_avvp`), the activations take static scales."""
     out = dict(params)
     out.update(quantize_tree(_ordered_towers(params, towers), min_dim=min_dim,
                              act_scales=act_scales))

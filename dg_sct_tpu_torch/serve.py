@@ -16,6 +16,12 @@ wire formats dequantized on the device, requests from memory or a dataset.
         # mask_u8=False); metas [(category, video)] in dataset order
         # (data.avs.S4Dataset)
 
+    eng = AVVPInferenceEngine(avvp_cfg, params, state, batch_size=4, chunk=4)
+    for probs, vids in eng.stream_probs(dataset):
+        # probs: global_prob, a_prob, v_prob (n, 25) and a_frame_prob,
+        # v_frame_prob (n, T, 25); vids the video ids in dataset order
+        # (data.avvp.LLPDataset)
+
 wave is float, int16 PCM or mu-law uint8, (n, T, L); frames are float or
 uint8, (n, T, H, W, 3), or, for AVE, planar YUV420: y (n, T, H, W) and uv
 (n, T, H/2, W/2, 2) uint8.
@@ -35,10 +41,10 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from .configs import AVEModelConfig, AVSModelConfig
+from .configs import AVEModelConfig, AVSModelConfig, AVVPModelConfig
 from .data.ave import batched_iterator, device_prefetch
 from .device import resolve_device
-from .models import ave, avs
+from .models import ave, avs, avvp
 from .models.interleave import fold_adapters_eval
 from .ops import quant
 from .ops.basic import (GELU_MODES, dequantize_mulaw_u8, normalize_frames_u8,
@@ -46,6 +52,7 @@ from .ops.basic import (GELU_MODES, dequantize_mulaw_u8, normalize_frames_u8,
 from .utils.tree import tree_map
 
 OUTPUTS = ("event_scores", "is_event_scores")
+AVVP_OUTPUTS = ("global_prob", "a_prob", "v_prob", "a_frame_prob", "v_frame_prob")
 
 
 def segment_preds(ev, ie):
@@ -57,11 +64,12 @@ def segment_preds(ev, ie):
 
 
 class _StreamingEngine:
-    """What both engines share: the weights folded, cast and optionally
+    """What the engines share: the weights folded, cast and optionally
     quantized on the card, the wire-format ingest, and the chunked stream.
     A subclass sets `_meta(batch, first, n)` (the ids of a batch's n real
     clips) and `_run_chunk(block)` (a staged block -> {name: (chunk, ...)}
-    on the card)."""
+    on the card), and `_arrays(batch)` where it stages other arrays than
+    the wave and the frames."""
 
     def __init__(self, cfg, params, state, *, batch_size, chunk, device, compute_dtype,
                  prefetch, num_workers, gelu, kernels, fold_eval, int8_towers,
@@ -104,11 +112,15 @@ class _StreamingEngine:
     def _to_dev(self, a):
         return torch.as_tensor(a).to(self.device, non_blocking=True)
 
+    def _arrays(self, batch) -> tuple:
+        """The keys of a batch's arrays that are padded, chunked and staged."""
+        return ("wave", "image")
+
     def _chunk_batches(self, dataset) -> Iterator[Tuple[dict, list]]:
-        """The dataset in order as (chunk, B, ...) blocks -> ({"wave", "image"}
-        or {"wave", "image_y", "image_uv"}, ids): ids[c] lists the ids
-        (`_meta`) of batch c's clips. The last batch is padded with its last
-        clip and the last block with its last batch; padding has no id."""
+        """The dataset in order as (chunk, B, ...) blocks -> ({key: array} for
+        each key of `_arrays`, ids): ids[c] lists the ids (`_meta`) of batch
+        c's clips. The last batch is padded with its last clip and the last
+        block with its last batch; padding has no id."""
         acc: dict = {}
         ids: list = []
         keys = None
@@ -116,7 +128,7 @@ class _StreamingEngine:
                 dataset, self.B, shuffle=False, drop_last=False, num_workers=self.num_workers,
                 prefetch=self.prefetch * self.chunk)):
             if keys is None:
-                keys = ("wave", "image_y", "image_uv") if "image_y" in batch else ("wave", "image")
+                keys = self._arrays(batch)
             n = batch["wave"].shape[0]
             for k in keys:
                 v = batch[k]
@@ -233,6 +245,9 @@ class AVEInferenceEngine(_StreamingEngine):
     def _meta(batch, first, n):
         return list(range(first, first + n))
 
+    def _arrays(self, batch):
+        return ("wave", "image_y", "image_uv") if "image_y" in batch else ("wave", "image")
+
     @torch.inference_mode()
     def _run_chunk(self, block):
         """Every batch of a staged block -> {output: (chunk, B, ...) float32}
@@ -312,3 +327,51 @@ class AVSInferenceEngine(_StreamingEngine):
             rows = [arr[c, :len(row)] for c, row in enumerate(metas) if row]
             yield (np.concatenate(rows) if rows else arr[:0, 0]), [m for row in metas
                                                                   for m in row]
+
+
+class AVVPInferenceEngine(_StreamingEngine):
+    def __init__(self, cfg: AVVPModelConfig, params, state, *, batch_size: int = 4,
+                 chunk: int = 4, device=None, compute_dtype=torch.bfloat16, prefetch: int = 2,
+                 num_workers: int = 8, gelu: Optional[str] = None, kernels: bool = True,
+                 fold_eval: bool = True, int8_towers: bool = False, act_scales=None):
+        """Streaming audio-visual video parsing (LLP): the probabilities the
+        F1 evaluation reads (`train.avvp_eval`), per video. `params`/`state`
+        as `models.avvp.init_avvp_model` or `weights.from_jax` give them,
+        float32. `gelu` (the towers' and the grouping heads' MLPs),
+        `kernels`, `fold_eval`, `int8_towers` with `act_scales` (from
+        `quant.calibrate_avvp`) and the streaming knobs as
+        `AVEInferenceEngine` takes them."""
+        super().__init__(cfg, params, state, batch_size=batch_size, chunk=chunk, device=device,
+                         compute_dtype=compute_dtype, prefetch=prefetch,
+                         num_workers=num_workers, gelu=gelu, kernels=kernels,
+                         fold_eval=fold_eval, int8_towers=int8_towers, act_scales=act_scales)
+
+    @torch.inference_mode()
+    def forward_batch(self, wave, frames, video_st):
+        """One batch of exactly `batch_size` clips -> {AVVP_OUTPUTS name:
+        float32 on the card}."""
+        out = avvp.forward(self.params, self.state, self._wave(self._to_dev(wave)),
+                           self._frames(self._to_dev(frames)), self._to_dev(video_st), self.cfg,
+                           kernels=self.kernels, gelu=self.gelu, device=self.device)
+        return {k: out[k].float() for k in AVVP_OUTPUTS}
+
+    @staticmethod
+    def _meta(batch, first, n):
+        return list(batch["video"][:n])
+
+    def _arrays(self, batch):
+        return ("wave", "image", "video_st")
+
+    @torch.inference_mode()
+    def _run_chunk(self, block):
+        outs = [self.forward_batch(block["wave"][c], block["image"][c], block["video_st"][c])
+                for c in range(block["wave"].shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in AVVP_OUTPUTS}
+
+    def stream_probs(self, dataset) -> Iterator[Tuple[dict, list]]:
+        """Yield ({AVVP_OUTPUTS name: (n, ...) float32}, video ids) per chunk,
+        in dataset order, the padding removed."""
+        for out, vids in self.stream(dataset):
+            rows = [(c, len(row)) for c, row in enumerate(vids) if row]
+            yield ({k: np.concatenate([v[c, :n] for c, n in rows]) if rows else v[:0, 0]
+                    for k, v in out.items()}, [v for row in vids for v in row])

@@ -1,5 +1,5 @@
-"""One command: import a DG-SCT AVE or AVS checkpoint into the port, and
-score AVE.
+"""One command: import a DG-SCT AVE, AVS or AVVP checkpoint into the port,
+and score AVE.
 
     python -m dg_sct_tpu_torch.tools.import_eval \\
         --ave-ckpt /path/to/best_82.18.pt \\
@@ -31,8 +31,11 @@ eval runs on `--device` (default: the card).
 JAX tool does for it: the census against `AVS_CKPT_IGNORED_PATTERNS` (exit 2),
 the shape audit through `from_jax` at `AVSModelConfig()` on the "meta"
 device (exit 3), and `--save` (the bundle adds "pvt_backbone", the bypassed
-PVT-v2-b5 tower, where the checkpoint has it); it scores no metric. The
-other tasks are not ported yet.
+PVT-v2-b5 tower, where the checkpoint has it); it scores no metric.
+`--task avvp` (the AVVP `MGN_Net`, `MGN_Net.pt`) likewise: the census
+against `AVVP_CKPT_IGNORED_PATTERNS` (exit 2), the shape audit at
+`AVVPModelConfig()` (exit 3) and `--save`; no metric. The other tasks are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ import sys
 import numpy as np
 import torch
 
-from ..configs import AVEModelConfig, AVSModelConfig, ave_adapter_dims
+from ..configs import AVEModelConfig, AVSModelConfig, AVVPModelConfig, ave_adapter_dims
 from ..data.ave import AVEDataset
 from ..serve import AVEInferenceEngine
 from ..train.metrics import ave_accuracy
@@ -58,10 +61,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--task", default="ave",
                    choices=("ave", "avvp", "avs", "avqa", "avqa_grounding"),
-                   help="checkpoint family; ave and avs are ported")
+                   help="checkpoint family; ave, avs and avvp are ported")
     p.add_argument("--ave-ckpt", "--ckpt", required=True, dest="ckpt", metavar="CKPT",
-                   help="the trained checkpoint (best_82.18.pt, or S4_pvt_best.pth "
-                        "with --task avs)")
+                   help="the trained checkpoint (best_82.18.pt, S4_pvt_best.pth with "
+                        "--task avs, MGN_Net.pt with --task avvp)")
     p.add_argument("--htsat-ckpt", default=None,
                    help="HTSAT_AudioSet_Saved_1.ckpt (overlays the frozen audio tower "
                         "with pre-finetune weights)")
@@ -120,6 +123,18 @@ def import_avs_checkpoint(ckpt: str, cfg: AVSModelConfig | None = None, lax=Fals
     return params, state, pvt, report
 
 
+def import_avvp_checkpoint(ckpt: str, cfg: AVVPModelConfig | None = None, lax=False, out=None):
+    """-> (params, state, report): the converted numpy tree and the census of
+    `ckpt`. Raises SystemExit(2) on unexplained keys unless `lax`."""
+    cfg = cfg or AVVPModelConfig()
+    sd = TC.track(TC.load_torch_file(ckpt))
+    n_adapters = len(ave_adapter_dims(cfg.swin, cfg.htsat))
+    params, state = TC.convert_avvp_model(sd, n_adapters, cfg.adapter.num_conv_group,
+                                          (cfg.depth_aud, cfg.depth_vis, cfg.depth_av))
+    report = _census(sd, "census", lax, out, TC.AVVP_CKPT_IGNORED_PATTERNS)
+    return params, state, report
+
+
 def _audit(params, state, cfg, device):
     """The shape audit: the converted tree through `from_jax`; exit 3 on a
     missing, extra or misshapen leaf."""
@@ -138,7 +153,7 @@ def _save(path, bundle):
         print(f"saved converted checkpoint -> {path}")
 
 
-def main(argv=None, cfg: AVEModelConfig | AVSModelConfig | None = None):
+def main(argv=None, cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig | None = None):
     """Runs the steps above; returns the accuracy in % when it scored a
     split, else None."""
     args = parse_args(argv)
@@ -147,6 +162,11 @@ def main(argv=None, cfg: AVEModelConfig | AVSModelConfig | None = None):
         _audit(params, state, cfg or AVSModelConfig(), "meta")
         _save(args.save, {"params": params, "state": state,
                           **({} if pvt is None else {"pvt_backbone": pvt})})
+        return None
+    if args.task == "avvp":
+        params, state, _ = import_avvp_checkpoint(args.ckpt, cfg, lax=args.lax)
+        _audit(params, state, cfg or AVVPModelConfig(), "meta")
+        _save(args.save, {"params": params, "state": state})
         return None
     if args.task != "ave":
         raise NotImplementedError(f"--task {args.task}: {NOT_PORTED}")

@@ -44,6 +44,20 @@ def make_optimizer(trainable, train_cfg: TrainConfig, steps_per_epoch: int) -> A
                            every_k=max(train_cfg.accum_steps, 1))
 
 
+def update_step(opt: AccumulatedAdam, trainable, frozen, opt_state, loss_fn):
+    """One mini-step of `opt` on `trainable`: `loss_fn(params)` -> (loss, aux)
+    on the merged tree whose trainable leaves take gradients -> (trainable,
+    opt_state, the loss detached, aux). A leaf the loss never reads (weights
+    kept for checkpoint parity) gets a zero gradient, as under jax.grad.
+    Nothing passed in is changed."""
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(trainable)]
+    loss, aux = loss_fn(merge_params(tree_unflatten(trainable, leaves), frozen))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    trainable, opt_state = opt.update(grads, opt_state, trainable)
+    return trainable, opt_state, loss.detach(), aux
+
+
 def make_train_step(cfg: AVEModelConfig, opt: AccumulatedAdam, *, device=None,
                     remat_policy: str = "full"):
     """train_step(trainable, frozen, state, opt_state, batch, gen=None) ->
@@ -55,22 +69,20 @@ def make_train_step(cfg: AVEModelConfig, opt: AccumulatedAdam, *, device=None,
     device = resolve_device(device)
 
     def train_step(trainable, frozen, state, opt_state, batch, gen=None):
-        leaves = [t.detach().requires_grad_() for t in tree_leaves(trainable)]
-        params = merge_params(tree_unflatten(trainable, leaves), frozen)
-        out, new_state = ave.forward(params, state, batch["wave"], batch["image"], cfg,
-                                     train=True, device=device, gen=gen,
-                                     mixup_lambda=batch.get("mixup_lambda"),
-                                     remat_policy=remat_policy)
         gt = torch.as_tensor(batch["gt"], device=device)
-        loss = losses.ave_loss(out, gt)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the forward never reads (weights kept for checkpoint parity)
-        # gets a zero gradient, as under jax.grad
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        trainable, opt_state = opt.update(grads, opt_state, trainable)
+
+        def loss_fn(params):
+            out, new_state = ave.forward(params, state, batch["wave"], batch["image"], cfg,
+                                         train=True, device=device, gen=gen,
+                                         mixup_lambda=batch.get("mixup_lambda"),
+                                         remat_policy=remat_policy)
+            return losses.ave_loss(out, gt), (out, new_state)
+
+        trainable, opt_state, loss, (out, new_state) = update_step(opt, trainable, frozen,
+                                                                   opt_state, loss_fn)
         acc = ave_accuracy_tensor(out["is_event_scores"].detach(),
                                   out["event_scores"].detach(), gt)
-        return trainable, new_state, opt_state, {"loss": loss.detach(), "acc": acc}
+        return trainable, new_state, opt_state, {"loss": loss, "acc": acc}
 
     return train_step
 

@@ -16,8 +16,8 @@ import torch
 from ..configs import AVSModelConfig
 from ..device import resolve_device
 from ..models import avs
-from ..utils.tree import tree_leaves, tree_unflatten
 from .ave_train import make_optimizer, merge_params, partition_params  # noqa: F401  (shared)
+from .ave_train import update_step
 from .optim import AccumulatedAdam
 
 
@@ -127,22 +127,22 @@ def make_train_step(cfg: AVSModelConfig, opt: AccumulatedAdam, *, task: str = "s
     device = resolve_device(device)
 
     def train_step(trainable, frozen, state, opt_state, batch, gen=None):
-        leaves = [t.detach().requires_grad_() for t in tree_leaves(trainable)]
-        params = merge_params(tree_unflatten(trainable, leaves), frozen)
-        out, new_state = avs.forward(params, state, batch["image"], batch["wave"], cfg,
-                                     train=True, device=device, gen=gen,
-                                     mixup_lambda=batch.get("mixup_lambda"),
-                                     remat_policy=remat_policy)
         mask = torch.as_tensor(batch["mask"], device=device)
-        loss = (f1_iou_bce_loss(out["pred"], mask, cfg.num_frames) if task == "s4"
-                else ms3_loss(out, mask))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the forward never reads (the head's decoders, path4's skip
-        # unit, the AVS adapters' ln_before and token_resample) gets a zero
-        # gradient, as under jax.grad
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        trainable, opt_state = opt.update(grads, opt_state, trainable)
-        return trainable, new_state, opt_state, {"loss": loss.detach()}
+
+        def loss_fn(params):
+            out, new_state = avs.forward(params, state, batch["image"], batch["wave"], cfg,
+                                         train=True, device=device, gen=gen,
+                                         mixup_lambda=batch.get("mixup_lambda"),
+                                         remat_policy=remat_policy)
+            loss = (f1_iou_bce_loss(out["pred"], mask, cfg.num_frames) if task == "s4"
+                    else ms3_loss(out, mask))
+            return loss, new_state
+
+        # the leaves the forward never reads (the head's decoders, path4's skip
+        # unit, the AVS adapters' ln_before and token_resample) take zero gradients
+        trainable, opt_state, loss, new_state = update_step(opt, trainable, frozen, opt_state,
+                                                            loss_fn)
+        return trainable, new_state, opt_state, {"loss": loss}
 
     return train_step
 

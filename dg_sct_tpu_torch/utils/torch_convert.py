@@ -1,17 +1,19 @@
-"""DG-SCT PyTorch checkpoint -> the port's AVE or AVS parameter tree, in numpy.
+"""DG-SCT PyTorch checkpoint -> the port's AVE, AVS or AVVP parameter tree, in
+numpy.
 
-The AVE and AVS parts of `dg_sct_tpu/utils/torch_convert.py`: a flat
+The AVE, AVS and AVVP parts of `dg_sct_tpu/utils/torch_convert.py`: a flat
 `{name: np.ndarray}` state dict (`load_torch_file`) of the full AVE
 `best_82.18.pt` MMIL_Net (timm swinv2 tower under `swin.`, HTS-AT under
 `htsat.`, adapters and heads), of `HTSAT_AudioSet_Saved_1.ckpt` with its
 `sed_model.` prefix stripped, or of the AVS S4 `Pred_endecoder`
 (`convert_avs_model`, with its bypassed PVT-v2-b5 tower as a numpy tree
-only) becomes the nested (params, state) tree of numpy arrays that
+only) or of the AVVP `MGN_Net` (`convert_avvp_model`) becomes the nested
+(params, state) tree of numpy arrays that
 `weights.from_jax` carries onto the device and checks leaf by leaf. A
 leading `module.` (nn.DataParallel) is stripped. `track` and
 `census_report` account for every checkpoint key: consumed, ignored by
-`AVE_CKPT_IGNORED_PATTERNS` (or `AVS_CKPT_IGNORED_PATTERNS`), or
-unexplained.
+`AVE_CKPT_IGNORED_PATTERNS` (or `AVS_CKPT_IGNORED_PATTERNS`,
+`AVVP_CKPT_IGNORED_PATTERNS`), or unexplained.
 """
 from __future__ import annotations
 
@@ -488,6 +490,97 @@ def convert_avs_model(sd, num_adapters=12, groups=2, tpavi_stages=(0, 1, 2, 3)):
 
 
 # ---------------------------------------------------------------------------
+# AVVP: MGN_Net (`DG-SCT/AVVP/nets/mgn.py`) -> models/avvp.py trees
+# ---------------------------------------------------------------------------
+
+def convert_qkv_attention(sd, pre):
+    """grouping.py's `Attention` and `AssignAttention`: separate q, k and v
+    projections."""
+    return {name: convert_linear(sd, f"{pre}.{name}")
+            for name in ("q_proj", "k_proj", "v_proj", "proj")}
+
+
+def convert_mlp(sd, pre):
+    return {"fc1": convert_linear(sd, f"{pre}.fc1"), "fc2": convert_linear(sd, f"{pre}.fc2")}
+
+
+def convert_attn_block(sd, pre):
+    """grouping.py's `AttnBlock` (fused qkv)."""
+    return {"norm1": convert_layernorm(sd, f"{pre}.norm1"),
+            "qkv": convert_linear(sd, f"{pre}.attn.qkv"),
+            "proj": convert_linear(sd, f"{pre}.attn.proj"),
+            "norm2": convert_layernorm(sd, f"{pre}.norm2"),
+            "mlp": convert_mlp(sd, f"{pre}.mlp")}
+
+
+def convert_grouping_block(sd, pre):
+    """grouping.py's `GroupingBlock`."""
+    pa = f"{pre}.pre_assign_attn"
+    return {
+        "norm_tokens": convert_layernorm(sd, f"{pre}.norm_tokens"),
+        "mlp_inter": convert_mlp(sd, f"{pre}.mlp_inter"),
+        "norm_post_tokens": convert_layernorm(sd, f"{pre}.norm_post_tokens"),
+        "norm_x": convert_layernorm(sd, f"{pre}.norm_x"),
+        "pre_assign_attn": {"attn": convert_qkv_attention(sd, f"{pa}.attn"),
+                            "norm2": convert_layernorm(sd, f"{pa}.norm2"),
+                            "mlp": convert_mlp(sd, f"{pa}.mlp"),
+                            "norm_post": convert_layernorm(sd, f"{pa}.norm_post")},
+        "assign": convert_qkv_attention(sd, f"{pre}.assign"),
+        "norm_new_x": convert_layernorm(sd, f"{pre}.norm_new_x"),
+        "mlp_channels": convert_mlp(sd, f"{pre}.mlp_channels"),
+    }
+
+
+def convert_modality_trans(sd, pre, depth, use_han=False):
+    """grouping.py's `ModalityTrans`."""
+    p = {"blocks": [convert_attn_block(sd, f"{pre}.blocks.{i}") for i in range(depth)],
+         "grouping": convert_grouping_block(sd, f"{pre}.grouping")}
+    if use_han:
+        p["han_encoder"] = convert_grouping_block(sd, f"{pre}.han_encoder")
+    return p
+
+
+def convert_slim_temporal_attention(sd, pre="temporal_attn"):
+    """AVVP's slim TemporalAttention (mgn.py:107-159): the BiLSTMs, two
+    encoders and the gates (each a Sequential of one Linear); no v_fc, a_fc
+    or decoders."""
+    def enc(name):
+        return {"affine": convert_linear(sd, f"{pre}.{name}.affine_matrix"),
+                "layers": [_enc_layer(sd, f"{pre}.{name}.encoder.layers.{i}") for i in range(2)]}
+
+    rnn = f"{pre}.audio_visual_rnn_layer"
+    return {"audio_rnn": convert_bilstm(sd, f"{rnn}.audio_rnn"),
+            "visual_rnn": convert_bilstm(sd, f"{rnn}.visual_rnn"),
+            "video_encoder": enc("video_encoder"),
+            "audio_encoder": enc("audio_encoder"),
+            "audio_gated": convert_linear(sd, f"{pre}.audio_gated.0"),
+            "video_gated": convert_linear(sd, f"{pre}.video_gated.0")}
+
+
+def convert_avvp_model(sd, num_adapters=12, groups=2, depths=(3, 3, 6)):
+    """The MGN_Net state dict (saved at AVVP/main.py:383) -> (params, state)
+    of `models.avvp.init_avvp_model`'s tree; `depths` are the audio, visual
+    and cross-modal grouping depths."""
+    sd = strip_prefix(sd, "module.")
+    htsat, htsat_state = convert_htsat(subdict(sd, "htsat."))
+    adapters, adapter_state = convert_adapter_lists(sd, num_adapters, groups)
+    params = {
+        "swin": convert_swinv2(subdict(sd, "swin.")),
+        "htsat": htsat,
+        "adapters": adapters,
+        **{k: convert_linear(sd, k) for k in ("fc_a", "fc_v", "fc_st", "fc_fusion", "fc_prob",
+                                                "fc_prob_a", "fc_prob_v", "fc_cls")},
+        "audio_token": np.asarray(sd["audio_token"]),
+        "visual_token": np.asarray(sd["visual_token"]),
+        "audio_cug": convert_modality_trans(sd, "audio_cug", depths[0], use_han=True),
+        "visual_cug": convert_modality_trans(sd, "visual_cug", depths[1]),
+        "av_mcg": convert_modality_trans(sd, "av_mcg", depths[2]),
+        "temporal_attn": convert_slim_temporal_attention(sd),
+    }
+    return params, {"htsat": htsat_state, "adapters": adapter_state}
+
+
+# ---------------------------------------------------------------------------
 # Census accounting: every key of the reference checkpoints is either
 # consumed by the converters above or matches one of these documented
 # ignore patterns (held against the key census of best_82.18.pt and
@@ -536,6 +629,19 @@ AVS_CKPT_IGNORED_PATTERNS = _SHARED_TOWER_IGNORED + (
     r"\.temporal_gated\.",
     # per-scale Encoder/Decoder prototype layers (the clones run instead)
     r"^temporal_attn\.\w+\.\d+\.(encoder_layer|decoder_layer)\.",
+)
+
+
+AVVP_CKPT_IGNORED_PATTERNS = _SHARED_TOWER_IGNORED + (
+    r"^adapter_token_downsampler\.",
+    # the caption path: MGN never passes `caption` (mgn.py's call sites all
+    # leave it None), so fc_caption is unreachable
+    r"\.fc_caption\.",
+    # temporal_gated is computed (mgn.py:349) but its modulation is
+    # commented out (mgn.py:355-363)
+    r"\.temporal_gated\.",
+    # Encoder/Decoder prototype layers (the clones run instead)
+    r"^temporal_attn\.\w+\.(encoder_layer|decoder_layer)\.",
 )
 
 

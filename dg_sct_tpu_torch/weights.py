@@ -1,4 +1,4 @@
-"""Carries the JAX package's AVE or AVS (params, state) across to the port.
+"""Carries the JAX package's AVE, AVS or AVVP (params, state) across to the port.
 
 The port keeps the JAX tree: the same nested dict keys and list lengths, and
 the same leaf shapes (linear kernels (in, out), grouped kernels
@@ -13,10 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .configs import AVEModelConfig, AVSModelConfig
+from .configs import AVEModelConfig, AVSModelConfig, AVVPModelConfig
 from .device import resolve_device
 from .models.ave import init_ave_model
 from .models.avs import init_avs_model
+from .models.avvp import init_avvp_model
 from .utils.tree import tree_leaves, tree_map
 
 
@@ -41,13 +42,19 @@ def _convert(ref, src, path, device):
     return torch.as_tensor(np.array(arr), device=device).to(ref.dtype)
 
 
-def from_jax(params_np, state_np, cfg: AVEModelConfig | AVSModelConfig, *, device=None):
+_INITS = ((AVSModelConfig, init_avs_model), (AVVPModelConfig, init_avvp_model),
+          (AVEModelConfig, init_ave_model))
+
+
+def from_jax(params_np, state_np, cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig, *,
+             device=None):
     """(params, state) of `dg_sct_tpu.models.ave.init_ave_model` (or, for an
-    AVSModelConfig, `models.avs.init_avs_model`), as nested dicts and lists
-    of numpy arrays -> the port's float32 (params, state) on `device` (None:
-    the card). Every leaf must be consumed and every shape must match."""
+    AVSModelConfig, `models.avs.init_avs_model`, for an AVVPModelConfig
+    `models.avvp.init_avvp_model`), as nested dicts and lists of numpy
+    arrays -> the port's float32 (params, state) on `device` (None: the
+    card). Every leaf must be consumed and every shape must match."""
     device = resolve_device(device)
-    init = init_avs_model if isinstance(cfg, AVSModelConfig) else init_ave_model
+    init = next(fn for kind, fn in _INITS if isinstance(cfg, kind))
     ref_p, ref_s = init(cfg, device="meta")
     return (_convert(ref_p, params_np, "params", device),
             _convert(ref_s, state_np, "state", device))

@@ -235,7 +235,7 @@ def test_import_eval_gates_and_exit_codes(tiny, tmp_path, capsys):
         import_eval.main(["--ckpt", bad, "--census-only"], cfg=pcfg)
     assert e.value.code == 3
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        import_eval.main(["--task", "avvp", "--ckpt", pt, "--census-only"], cfg=pcfg)
+        import_eval.main(["--task", "avqa", "--ckpt", pt, "--census-only"], cfg=pcfg)
 
 
 def test_import_eval_accuracy_matches_jax(tiny, tmp_path):
