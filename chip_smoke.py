@@ -19,7 +19,10 @@ Phases, each fatal on failure:
      and K2 run after a launch that leaves NaN in shared memory. K3 also at
      shapes off the main path: ragged row tiles, no LN_before, four groups of
      24 or 48 channels; K1 and K2 also at phase 8's shapes (10 frames a
-     forward), checked in both dtypes, not timed;
+     forward), checked in both dtypes, not timed; K3 also at each of phase
+     12's eight shapes (four groups: C/g 24 to 384, go = C/32), checked and
+     timed in both dtypes against the composed calls and the bound, one AVQA
+     forward's sums on `avqa k3:` lines;
   4. drive the full-width AVE eval forward (AVEModelConfig(), random weights
      from seed 0, nonzero adapter gates) through AVEInferenceEngine: B=2 clips
      in bf16, 3 predict requests; check outputs, launch counts K1=2, K2=34,
@@ -152,6 +155,48 @@ Phases, each fatal on failure:
      8 videos: it must save `MGN_Net.npz` and report F1 in [0, 100]; and that
      train state loaded into a bf16 AVVPInferenceEngine, which answers 2
      clips (2/34/48/0).
+  12. serve the AVQA model at full width (AVQAModelConfig(): the AVE towers,
+     48 adapters of 2 latent tokens and 4 channel groups, the visual ones
+     gated, the question encoder and the grounding and fusion heads at 1536):
+     the census of DG-SCT's stage-1 grounding checkpoint through
+     `convert_avqa_grounding` (0 unexplained keys, shape audit), then a state
+     dict synthesized from the key census of the AVQA_Fusion_Net checkpoint
+     (gates nonzero from the seed) through `convert_avqa_fusion` (0
+     unexplained keys) and `from_jax` into a bf16 AVQAInferenceEngine (B=2,
+     chunk=2, every adapter folded), which streams 7 questions of an on-disk
+     MUSIC-AVQA tree (JPEG frames at 192, .npy waves of 10 x 320000,
+     templated questions) through `stream_answers`: launches 4 x
+     (K1/K2/K3/K4 = 2/34/48/0), logits (7, 42) finite, metas in dataset
+     order; in float32 the engine with kernels against the plain one (each
+     K1, K2 and K3 call against the plain version on its own input;
+     AVQA_F32_TOL of the logits' largest value, beside the plain path's own
+     move under a 1e-6 relative change of its inputs and the readings of two
+     faults planted in front of K3, which the bound must catch); clips/s of
+     `stream_answers` over 16 in-memory questions in two wire formats (uint8
+     frames with int16 waves; AVQADataset's float32 items), two rounds each;
+     one profiled forward (the question encoder and the grounding and fusion
+     heads as their own groups) and its peak memory; `calibrate_avqa` on a
+     seeded B=2 batch and an int8_towers engine (launches 34/2/48/142 a
+     forward, drift against bf16) and each K4 call of a float32 int8 forward
+     against its plain version. The bounds of this phase are checked once
+     every reading is printed;
+  13. train the AVQA model at full width in float32, TF32 off, at the
+     recipe's B=2 (20 frames and 20 audio clips, Adam at 1e-4): 3 grounding
+     mini-steps (stage 1, plain Adam; the frozen towers alone in eval form,
+     launches 2/34/0/0 each; only the heads move, the towers bit-identical,
+     bn0's state moved), the heads taken over (`transfer_stage1`), 3
+     stage-2 mini-steps with a generator under StepLR, remat "full" (each
+     loss finite, every trainable leaf moved, every frozen one
+     bit-identical, bn0 moved, launches 2/22/0/0 each: the negative branch's
+     frozen Swin-V2, and no other kernel), each mini-step's time and peak
+     memory; one profiled mini-step; one with remat "none"; the eval step
+     (2/34/24/0: K3 in float32 on the 24 audio adapters); and
+     `avqa_main.main(["--mode", "train", "--stage", "1", ...])` then
+     `--stage 2 --stage1-ckpt`, once each, on the card by default, over an
+     on-disk tree with train, val and test splits: they must save
+     `grounding_gen_best.npz` and `avst_best.npz` and report per-type
+     accuracies in [0, 100]; and that train state loaded into a bf16
+     AVQAInferenceEngine, which answers 2 questions (2/34/48/0).
 It then prints the kernels line (launches from phase 4, K4's from phase 7),
 the card line and, last, the ok line.
 
@@ -160,17 +205,21 @@ the card line and, last, the ok line.
     python3 chip_smoke.py --only avs_train            # phases 1, 2 and 9
     python3 chip_smoke.py --only avvp                 # phases 1, 2 and 10
     python3 chip_smoke.py --only avvp_train           # phases 1, 2 and 11
+    python3 chip_smoke.py --only avqa                 # phases 1, 2, AVQA's K3 and 12
+    python3 chip_smoke.py --only avqa_train           # phases 1, 2, AVQA's K3 and 13
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 to 11 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
-`avvp` and `avvp_train` run phase 8, 9, 10 or 11 alone. Such a run prints no
-ok line. Phase 10's K1-K3 shapes are phase 4's (20 frames and 20 audio clips
-a forward; a 1 s wave is resized to the same log-mel image), which phase 3
-checks and times.
+phases 4 to 13 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
+`avvp`, `avvp_train`, `avqa` and `avqa_train` run phase 8, 9, 10, 11, 12 or
+13 alone. Such a run prints no ok line. Phase 10's K1-K3 shapes are phase
+4's (20 frames and 20 audio clips a forward; a 1 s wave is resized to the
+same log-mel image), which phase 3 checks and times; phase 12's K1 and K2
+shapes are phase 4's too, its K3 shapes phase 3's AVQA rows.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -331,6 +380,23 @@ def kernel_cases(cfg):
             + [("int8_linear", k, n) for k, n in sorted(int8_call_shapes(cfg).items())])
 
 
+def avqa_k3_cases():
+    """{K3 key: calls a forward} of the AVQA model's 48 adapters (B=2 clips:
+    BATCH * 10 frames and audio clips): four channel groups, so C/g = 24 to
+    384 and go = C/32; checked and timed in phase 3 beside the AVE shapes."""
+    from dg_sct_tpu_torch.configs import AVQAModelConfig, ave_adapter_dims
+
+    cfg = AVQAModelConfig()
+    frames, g = BATCH * cfg.num_frames, cfg.adapter.num_conv_group
+    r = cfg.adapter.reduction_factor
+    k3 = {}
+    for (v_dim, v_tok, a_dim, a_tok) in ave_adapter_dims(cfg.swin, cfg.htsat):
+        for C, N in ((v_dim, v_tok), (a_dim, a_tok)):
+            key = (frames * N, C, g, C // r // g, True)
+            k3[key] = k3.get(key, 0) + 2
+    return k3
+
+
 def avs_attention_cases():
     """(kernel, case, launches per AVS forward) of K1 and K2 at the shapes
     of phase 8's forward (B=2 AVS clips: BATCH * 5 frames); checked in phase
@@ -400,8 +466,8 @@ def composed_half_block(x, wqkv, bqkv, wproj, bproj, full_bias, ln_s, ln_b, logi
 
 
 # K3 off the main path, (rows, C, groups, go, has_ln1): ragged last row tiles
-# (one clip: 360 rows at C = 1536), no LN_before, and the four groups of the
-# AVS and AVQA adapters (C/g = 24 or 48)
+# (one clip: 360 rows at C = 1536), no LN_before, and four groups at C/g = 24
+# or 48 off the AVQA forward's row counts (`check_avqa_k3` takes those)
 K3_EXTRA = ((360, 1536, 2, 96, True), (360, 1536, 2, 96, False), (40, 768, 2, 48, True),
             (2880, 768, 2, 48, False), (100, 96, 4, 3, True), (77, 192, 4, 6, False))
 
@@ -604,6 +670,8 @@ def check_kernels(cfg, only=None):
                         lambda: torch.addmm(bb, xb, wb))
             rows.append(row)
             print("kernel", json.dumps(row), flush=True)
+    if not only or "adapter_bottleneck" in only or "avqa" in only:
+        rows += check_avqa_k3(gen)
     # checks only, not timed: K3 off the main path, K1 and K2 at phase 8's shapes
     extra = [("adapter_bottleneck", key, "off the main path") for key in K3_EXTRA]
     extra += [(name, key, f"AVS path, {n} a forward") for name, key, n in avs_attention_cases()]
@@ -619,18 +687,52 @@ def check_kernels(cfg, only=None):
     return rows
 
 
+def check_avqa_k3(gen):
+    """K3 at each of the AVQA forward's shapes (four groups), both dtypes:
+    checked against its plain version and timed beside the composed library
+    calls and the bound; then one forward's sum of each (`avqa k3:`)."""
+    rows = []
+    for key, n in sorted(avqa_k3_cases().items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            kern, _, _, composed, flops, nbytes, ref, err = check_case("adapter_bottleneck", key,
+                                                                       dtype, gen)
+            b_ms, ops_ms, bytes_ms = bound(flops, nbytes, dtype)
+            k_ms, k_dev, k_host = time_ms(kern)
+            c_ms, c_dev, _ = time_ms(composed)
+            row = dict(name="adapter_bottleneck", case=list(key),
+                       dtype=str(dtype).replace("torch.", ""), per_forward=0, avqa_per_forward=n,
+                       checked_only=True, max_abs_err=err, kernel_ms=k_ms, kernel_device_ms=k_dev,
+                       kernel_host_ms=k_host, composed_ms=c_ms, composed_device_ms=c_dev,
+                       bound_ms=b_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                       composed_err=(composed().float() - ref.float()).abs().max().item())
+            rows.append(row)
+            print("kernel avqa", json.dumps(row), flush=True)
+    for dtype in ("float32", "bfloat16"):
+        mine = [r for r in rows if r["dtype"] == dtype]
+        tot = lambda k: sum(r["avqa_per_forward"] * r[k] for r in mine)
+        print(f"avqa k3: {dtype}, one AVQA forward's {sum(r['avqa_per_forward'] for r in mine)} "
+              f"calls (four groups, C/g 24 to 384): kernel {tot('kernel_ms'):.4f} ms as issued, "
+              f"{tot('kernel_device_ms'):.4f} ms on the card; composed library calls "
+              f"{tot('composed_ms'):.4f} / {tot('composed_device_ms'):.4f} ms; bound "
+              f"{tot('bound_ms'):.4f} ms; max abs err {max(r['max_abs_err'] for r in mine):.3e}; "
+              f"shapes where the kernel loses to composed on the card: "
+              f"{[r['case'][:2] for r in mine if r['kernel_device_ms'] > r['composed_device_ms']]}",
+              flush=True)
+    return rows
+
+
 def kernels_line(rows, counts):
     """One entry per kernel: the bfloat16 times summed over one forward's
     calls (the main path serves bf16), errors over every case and dtype."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         checked = [r for r in rows if r["name"] == name]  # errors over every check
-        mine = [r for r in checked if not r.get("checked_only")]
-        if not mine:  # not checked in this run (--only)
+        main = [r for r in checked if r["dtype"] == "bfloat16" and r["per_forward"]
+                and not r.get("checked_only")]
+        if not main:  # no main-path case checked in this run (--only)
             continue
-        main = [r for r in mine if r["dtype"] == "bfloat16" and r["per_forward"]]
         tot = lambda k: sum(r["per_forward"] * r[k] for r in main)
-        known = lambda k: tot(k) if main and None not in [r[k] for r in main] else None
+        known = lambda k: tot(k) if None not in [r[k] for r in main] else None
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name],
@@ -873,22 +975,34 @@ def census_state_dict(path, seed=0):
     return sd
 
 
+def census_import(what, path, convert, ignored, cfg, device="cuda", **kw):
+    """A census state dict (`path`) through the port's import path: `convert`,
+    the key census against `ignored` (0 unexplained) and `from_jax` onto
+    `device` -> (params, state, the converter's further returns, the start
+    of the import line)."""
+    from dg_sct_tpu_torch.utils import torch_convert as TC
+    from dg_sct_tpu_torch.weights import from_jax
+
+    sd = TC.track(census_state_dict(path))
+    params, state, *rest = convert(sd)
+    report = TC.census_report(sd, ignored)
+    if report["unexplained"]:
+        raise AssertionError(f"{what}: unexplained keys {report['unexplained'][:10]}")
+    params, state = from_jax(params, state, cfg, device=device, **kw)
+    return params, state, rest, (f"{what}: {len(sd)} keys of {path.name}: "
+                                 f"{len(report['consumed'])} consumed, "
+                                 f"{len(report['ignored'])} ignored, 0 unexplained")
+
+
 def import_census_model(cfg):
     """The census state dict through the port's import path: converter,
     key census, `from_jax` onto the card."""
     from dg_sct_tpu_torch.utils import torch_convert as TC
-    from dg_sct_tpu_torch.weights import from_jax
 
     t0 = time.perf_counter()
-    sd = TC.track(census_state_dict(CENSUS))
-    params, state = TC.convert_ave_model(sd)
-    report = TC.census_report(sd)
-    if report["unexplained"]:
-        raise AssertionError(f"census: unexplained keys {report['unexplained'][:10]}")
-    params, state = from_jax(params, state, cfg, device="cuda")
-    print(f"import: {len(sd)} keys of {CENSUS.name}: {len(report['consumed'])} consumed, "
-          f"{len(report['ignored'])} ignored, 0 unexplained; on the card in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    params, state, _, line = census_import("import", CENSUS, TC.convert_ave_model,
+                                           TC.AVE_CKPT_IGNORED_PATTERNS, cfg)
+    print(f"{line}; on the card in {time.perf_counter() - t0:.1f} s", flush=True)
     return params, state
 
 
@@ -1583,10 +1697,11 @@ def write_avs_tree(root, videos, cfg, seed=0, split="test"):
 
 
 class Nudged:
-    """A dataset's items with float image and wave scaled by (1 + rel * N(0, 1))."""
+    """A dataset's items with the float arrays under `keys` (image and wave)
+    scaled by (1 + rel * N(0, 1))."""
 
-    def __init__(self, ds, rel, seed):
-        self.ds, self.rel, self.seed = ds, rel, seed
+    def __init__(self, ds, rel, seed, keys=("image", "wave")):
+        self.ds, self.rel, self.seed, self.keys = ds, rel, seed, keys
 
     def __len__(self):
         return len(self.ds)
@@ -1594,7 +1709,7 @@ class Nudged:
     def __getitem__(self, i):
         item = dict(self.ds[i])
         rs = np.random.RandomState(self.seed + i)
-        for k in ("image", "wave"):
+        for k in self.keys:
             v = item[k].astype(np.float32)
             item[k] = (v * (1.0 + self.rel * rs.randn(*v.shape))).astype(np.float32)
         return item
@@ -1719,19 +1834,162 @@ def import_avs_census_model(cfg):
     """The AVS S4 census state dict through the port's import path:
     converter, key census (0 unexplained), `from_jax` onto the card."""
     from dg_sct_tpu_torch.utils import torch_convert as TC
-    from dg_sct_tpu_torch.weights import from_jax
 
     t0 = time.perf_counter()
-    sd = TC.track(census_state_dict(AVS_CENSUS))
-    params, state, pvt = TC.convert_avs_model(sd)
-    report = TC.census_report(sd, TC.AVS_CKPT_IGNORED_PATTERNS)
-    if report["unexplained"] or pvt is None:
-        raise AssertionError(f"avs census: unexplained keys {report['unexplained'][:10]}")
-    params, state = from_jax(params, state, cfg, device="cuda")
-    print(f"avs import: {len(sd)} keys of {AVS_CENSUS.name}: {len(report['consumed'])} "
-          f"consumed (PVT-v2-b5 tower converted, bypassed), {len(report['ignored'])} ignored, "
-          f"0 unexplained; on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    params, state, (pvt,), line = census_import("avs import", AVS_CENSUS, TC.convert_avs_model,
+                                                TC.AVS_CKPT_IGNORED_PATTERNS, cfg)
+    if pvt is None:
+        raise AssertionError("avs import: the PVT-v2-b5 tower was not converted")
+    print(f"{line}; PVT-v2-b5 tower converted, bypassed; on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return params, state
+
+
+def launches_for(per_forward, n):
+    """The launch counts of serving `n` items at B=BATCH."""
+    return {k: v * -(-n // BATCH) for k, v in per_forward.items()}
+
+
+def check_folded(eng, what, note=""):
+    """Every adapter the engine folded holds no bn1, bn2 or gate (K3 takes it)."""
+    folded = [ap for k in eng.params["adapters"] for ap in eng.params["adapters"][k]]
+    eligible = sum(not {"bn1", "bn2", "gate"} & set(ap) for ap in folded)
+    print(f"{what} fold: {eligible} of the {len(folded)} folded adapters hold no bn1, bn2 or "
+          f"gate (K3 takes them{note})", flush=True)
+    if eligible != len(folded):
+        raise AssertionError(f"{what} fold: an adapter kept its BN or gate after fold_eval")
+
+
+def serve_timed(what, stream, eng, disk, per_forward):
+    """`stream` (a `stream_*_all`, its launch counts last) over the decoded
+    items once to warm up, then timed -> (its result, seconds, peak bytes);
+    fails unless the launches are `per_forward` a forward."""
+    stream(eng, disk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = stream(eng, disk)
+    dt = time.perf_counter() - t0
+    want = launches_for(per_forward, len(disk))
+    if out[-1] != want:
+        raise AssertionError(f"{what}: launch counts {out[-1]}, expected {want}")
+    return out, dt, torch.cuda.max_memory_allocated()
+
+
+def f32_against_plain(what, stream, plain, kern, disk, tol, bad, *, per_forward, checked,
+                      planted_in, faults, nudge_keys=("image", "wave"), flatten=lambda x: x,
+                      detail=lambda got, ref: "", hooks=(None, None)):
+    """The float32 engine with kernels (`kern`) against the plain one on the
+    decoded items: each call of the kernels in `checked` against its plain
+    version on its own input, the launches, the first outputs (`flatten`ed)
+    within `tol` by `spread_err` beside the plain path's own move under a
+    relative nudge of `nudge_keys`, and `faults` planted in front of
+    `planted_in`, each of which `tol` must catch. `hooks` are contexts held
+    over the plain run and the kernel run. -> (ref, got)."""
+    with hooks[0] or contextlib.nullcontext():
+        ref = stream(plain, disk)[0]
+    calls = {k: [] for k in checked}
+    with contextlib.ExitStack() as stack:
+        for kernel in checked:
+            stack.enter_context(side_by_side(kernel, calls[kernel]))
+        if hooks[1] is not None:
+            stack.enter_context(hooks[1])
+        out = stream(kern, disk)
+    got, counts = out[0], out[-1]
+    want = launches_for(per_forward, len(disk))
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {want}")
+    for kernel, c in calls.items():
+        report_calls(what, kernel, c, bad)
+    near = stream(plain, Nudged(disk, INT8_NUDGE, seed=21, keys=nudge_keys))[0]
+    f_got, f_ref = flatten(got), flatten(ref)
+    err, sens = spread_err(f_got, f_ref), spread_err(flatten(near), f_ref)
+    print(f"{what}: kernels vs plain max |delta| / max |value| {err:.3e} (bound {tol:g}), max "
+          f"abs diff {np.abs(f_got - f_ref).max():.3e}, max |value| {np.abs(f_ref).max():.3e}"
+          f"{detail(got, ref)}; the plain path moves {sens:.3e} with frames and wave changed "
+          f"by {INT8_NUDGE:g} (relative); launches {counts}", flush=True)
+    if not np.isfinite(f_got).all() or err > tol:
+        bad.append(f"{what}: kernels and plain path disagree ({err:.3e})")
+    read_planted(planted_in, lambda: flatten(stream(kern, disk)[0]), f_ref, tol, what, bad,
+                 faults=faults)
+    return ref, got
+
+
+def stream_rates(what, stream, eng, formats, keys, unit="clips", note=""):
+    """Clips/s of `stream` over each (name, dataset) of `formats`, two rounds
+    each; `keys` name the arrays staged to the card."""
+    for fmt, data in formats:
+        staged = BATCH * sum(data[0][k].nbytes for k in keys)
+        for rnd in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream(eng, data)
+            dt = time.perf_counter() - t0
+            print(f"{what} stream: {fmt} ({staged / 1e6:.3f} MB host to device a forward): run "
+                  f"{rnd}: {len(data)} {unit} in {dt:.3f} s = {len(data) / dt:.3f} clips/s "
+                  f"(B={BATCH}, chunk 2, bf16{note})", flush=True)
+
+
+def op_group(groups):
+    """A profile's host-op groups: every kernel launched under one of the
+    profiler ranges `groups` (`annotate`'s labels) goes to that range."""
+    def group(e):
+        op = e
+        while op is not None:
+            if op.name in groups:
+                return op.name
+            op = op.cpu_parent
+        return None
+    return group
+
+
+def profile_batch(what, tag, eng, batch, group, ranges=()):
+    """One warm `forward_batch(*batch)`, then one under the profiler with
+    each (module, name, label) of `ranges` under its range, and its peak
+    memory."""
+    eng.forward_batch(*batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for module, name, label in ranges:
+            stack.enter_context(annotate(module, name, label))
+        profile_run(lambda: eng.forward_batch(*batch), what, tag, op_group=group)
+    print(f"{tag}: peak memory of the profiled forward "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+
+def calibrated(what, calibrate, note):
+    """`calibrate()`'s activation scales, timed."""
+    t0 = time.perf_counter()
+    scales = calibrate()
+    print(f"{what} int8: calibrated {len(scales)} activation scales in "
+          f"{time.perf_counter() - t0:.3f} s ({note})", flush=True)
+    return scales
+
+
+def serve_int8(what, stream, eng, disk, per_forward, flatten=lambda x: x):
+    """`stream` of the int8-towers engine over the decoded items -> its
+    result; fails unless the launches are `per_forward` a forward and the
+    outputs finite."""
+    out = stream(eng, disk)
+    want = launches_for(per_forward, len(disk))
+    if out[-1] != want or not np.isfinite(flatten(out[0])).all():
+        raise AssertionError(f"{what} int8: launches {out[-1]} (expected {want}) or non-finite")
+    return out
+
+
+def check_int8_forward(what, params, state, cfg, towers, scales, forward):
+    """Each K4 call of the float32 int8-towers forward `forward(tree, state)`
+    (the folded tree quantized with `scales`) against its plain version."""
+    from dg_sct_tpu_torch.models.interleave import fold_adapters_eval
+    from dg_sct_tpu_torch.ops import quant
+
+    fp, fs = fold_adapters_eval(params, state, cfg)
+    qp = quant.quantize_eval_params(fp, towers=towers, act_scales=scales)
+    del fp
+    n_calls, kerr = check_int8_calls(qp, towers, lambda t: forward(t, fs), what)
+    print(f"{what}: each of the {n_calls} K4 calls of a forward against the plain version on "
+          f"its own input: max abs err {kerr:.3e} (atol/rtol {TOL[torch.float32]})", flush=True)
 
 
 def run_avs(device="cuda"):
@@ -1763,16 +2021,8 @@ def run_avs(device="cuda"):
         ds = S4Dataset(str(root), "test", mask_num=T, img_size=S, num_frames=T,
                        segment_samples=cfg.htsat.frontend.clip_samples)
         disk = [ds[i] for i in range(len(ds))]  # decoded once; the checks below reuse them
-    stream_all(eng, disk)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    masks, metas, counts = stream_all(eng, disk)
-    dt = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    want = {k: v * forwards for k, v in AVS_PER_FORWARD.items()}
-    if counts != want:
-        raise AssertionError(f"avs: launch counts {counts}, expected {want}")
+    (masks, metas, counts), dt, peak = serve_timed("avs", stream_all, eng, disk,
+                                                   AVS_PER_FORWARD)
     if masks.shape != (CLIPS, T, S, S) or not np.isfinite(masks).all():
         raise AssertionError(f"avs: masks {masks.shape} or non-finite")
     if masks.min() < 0.0 or masks.max() > 1.0:
@@ -1791,57 +2041,29 @@ def run_avs(device="cuda"):
     f32 = dict(batch_size=BATCH, chunk=2, device=device, compute_dtype=torch.float32)
     plain = AVSInferenceEngine(cfg, params, state, kernels=False, mask_u8=False, **f32)
     kern = AVSInferenceEngine(cfg, params, state, mask_u8=False, **f32)
-    ref, _, _ = stream_all(plain, disk)
-    k1_calls, k2_calls = [], []
-    with side_by_side("window_attention", k1_calls), side_by_side("block_attention", k2_calls):
-        got, _, counts = stream_all(kern, disk)
-    if counts != want:
-        raise AssertionError(f"avs f32: launch counts {counts}, expected {want}")
-    report_calls("avs f32", "window_attention", k1_calls, bad)
-    report_calls("avs f32", "block_attention", k2_calls, bad)
-    near, _, _ = stream_all(plain, Nudged(disk, INT8_NUDGE, seed=21))
-    err, sens = spread_err(got, ref), spread_err(near, ref)
-    print(f"avs f32: kernels vs plain max |delta logit| / max |logit| {err:.3e} (bound "
-          f"{AVS_F32_TOL:g}), max abs diff {np.abs(got - ref).max():.3e}, max |logit| "
-          f"{np.abs(ref).max():.3e}; the plain path moves {sens:.3e} with frames and wave "
-          f"changed by {INT8_NUDGE:g} (relative); launches {counts}", flush=True)
-    if not np.isfinite(got).all() or err > AVS_F32_TOL:
-        bad.append(f"avs f32: kernels and plain path disagree ({err:.3e})")
-    read_planted("block_attention", lambda: stream_all(kern, disk)[0], ref, AVS_F32_TOL,
-                 "avs f32", bad)
+    ref, got = f32_against_plain("avs f32", stream_all, plain, kern, disk, AVS_F32_TOL, bad,
+                                 per_forward=AVS_PER_FORWARD,
+                                 checked=("window_attention", "block_attention"),
+                                 planted_in="block_attention", faults=PLANTED)
     u8, _, _ = stream_all(AVSInferenceEngine(cfg, params, state, **f32), disk)
     u8_err = np.abs(u8 - 1.0 / (1.0 + np.exp(-got.astype(np.float64)))).max()
     print(f"avs f32: mask_u8 against sigmoid(logits) max abs diff {u8_err:.6e} (bound "
           f"{MASK_U8_TOL:.6e})", flush=True)
     if u8_err > MASK_U8_TOL:
         bad.append(f"avs: mask_u8 off sigmoid(logits) by {u8_err:.3e}")
-    del plain, kern, ref, got, near, u8
+    del plain, kern, ref, got, u8
 
     # clips/s in two wire formats, and a profiled forward
     clips = Clips(AVS_STREAM_CLIPS, cfg, seed=13, size=S, named=True)
     s4 = [disk[i % CLIPS] for i in range(AVS_STREAM_CLIPS)]  # S4Dataset's items, in memory
-    formats = (("uint8 frames, int16 wave", clips),
-               ("S4Dataset's float32 normalized frames and float32 wave", s4))
-    for fmt, data in formats:
-        staged = BATCH * sum(data[0][k].nbytes for k in ("wave", "image"))
-        for rnd in (1, 2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stream_all(eng, data)
-            dt = time.perf_counter() - t0
-            print(f"avs stream: {fmt} ({staged / 1e6:.3f} MB host to device a forward): run "
-                  f"{rnd}: {AVS_STREAM_CLIPS} clips in {dt:.3f} s = {AVS_STREAM_CLIPS / dt:.3f} "
-                  f"clips/s (B={BATCH}, chunk 2, bf16, uint8 masks)", flush=True)
+    stream_rates("avs", stream_all, eng,
+                 (("uint8 frames, int16 wave", clips),
+                  ("S4Dataset's float32 normalized frames and float32 wave", s4)),
+                 ("wave", "image"), note=", uint8 masks")
     one = clips[0]
-    wave = np.stack([one["wave"]] * BATCH)
-    frames = np.stack([one["image"]] * BATCH)
-    eng.forward_batch(wave, frames)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    profile_run(lambda: eng.forward_batch(wave, frames), f"one AVS forward of {BATCH} clips",
-                "avs profile", op_group=avs_op_group)
-    print(f"avs profile: peak memory of the profiled forward "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    profile_batch(f"one AVS forward of {BATCH} clips", "avs profile", eng,
+                  (np.stack([one["wave"]] * BATCH), np.stack([one["image"]] * BATCH)),
+                  avs_op_group)
 
     # int8 towers with scales calibrated on a seeded batch
     rs = np.random.RandomState(7)
@@ -1849,19 +2071,13 @@ def run_avs(device="cuda"):
         np.float32), device=device).to(torch.bfloat16)
     ci = torch.as_tensor(rs.rand(BATCH, T, S, S, 3).astype(np.float32), device=device).to(
         torch.bfloat16)
-    t0 = time.perf_counter()
-    scales = quant.calibrate_avs(eng.params, eng.state, eng.cfg, cw, ci, gelu=eng.gelu,
-                                 device=device)
-    print(f"avs int8: calibrated {len(scales)} activation scales in "
-          f"{time.perf_counter() - t0:.3f} s (one plain bf16 forward of {BATCH} clips)",
-          flush=True)
+    scales = calibrated("avs", lambda: quant.calibrate_avs(eng.params, eng.state, eng.cfg, cw, ci,
+                                                           gelu=eng.gelu, device=device),
+                        f"one plain bf16 forward of {BATCH} clips")
     del eng
     q8 = AVSInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device,
                             int8_towers=True, act_scales=scales)
-    q_masks, _, counts = stream_all(q8, disk)
-    want = {k: v * forwards for k, v in AVS_INT8_PER_FORWARD.items()}
-    if counts != want or not np.isfinite(q_masks).all():
-        raise AssertionError(f"avs int8: launches {counts} (expected {want}) or non-finite")
+    q_masks, _, counts = serve_int8("avs", stream_all, q8, disk, AVS_INT8_PER_FORWARD)
     agree = float(((q_masks > 0.5) == (masks > 0.5)).mean())
     print(f"avs int8: launches {counts} ({forwards} forwards); drift against bf16 over "
           f"{CLIPS} clips: max |delta prob| {np.abs(q_masks - masks).max():.4f}, mean "
@@ -2259,6 +2475,7 @@ AVVP_F32_TOL = 5e-4
 # channel groups' weights swapped, as a kernel that indexed the groups wrong
 K3_PLANTED = {"down weights rounded to bf16": lambda w: w.to(torch.bfloat16).to(w.dtype),
               "down weights' groups swapped": lambda w: w.flip(0).contiguous()}
+K123 = ("window_attention", "block_attention", "adapter_bottleneck")  # held side by side
 AVVP_OUTPUTS = ("global_prob", "a_prob", "v_prob", "a_frame_prob", "v_frame_prob")
 
 
@@ -2375,35 +2592,17 @@ def annotate(module, name, label):
 AVVP_HEAD_GROUPS = ("AVVP grouping heads", "AVVP temporal gates")
 
 
-def avvp_op_group(e):
-    """The AVVP profile's host-op groups: every kernel launched under the
-    grouping heads' or the slim temporal attention's range."""
-    op = e
-    while op is not None:
-        if op.name in AVVP_HEAD_GROUPS:
-            return op.name
-        op = op.cpu_parent
-    return None
-
-
 def import_avvp_census_model(cfg):
     """The AVVP census state dict through the port's import path: converter,
     key census (0 unexplained), `from_jax` onto the card."""
     from dg_sct_tpu_torch.utils import torch_convert as TC
-    from dg_sct_tpu_torch.weights import from_jax
 
     t0 = time.perf_counter()
-    sd = TC.track(census_state_dict(AVVP_CENSUS))
-    params, state = TC.convert_avvp_model(sd)
-    report = TC.census_report(sd, TC.AVVP_CKPT_IGNORED_PATTERNS)
-    if report["unexplained"]:
-        raise AssertionError(f"avvp census: unexplained keys {report['unexplained'][:10]}")
-    params, state = from_jax(params, state, cfg, device="cuda")
+    params, state, _, line = census_import("avvp import", AVVP_CENSUS, TC.convert_avvp_model,
+                                           TC.AVVP_CKPT_IGNORED_PATTERNS, cfg)
     tokens = [float(params[k].abs().mean()) for k in ("audio_token", "visual_token")]
-    print(f"avvp import: {len(sd)} keys of {AVVP_CENSUS.name}: {len(report['consumed'])} "
-          f"consumed, {len(report['ignored'])} ignored, 0 unexplained; class tokens from the "
-          f"seed, mean |value| {tokens[0]:.4f} / {tokens[1]:.4f}; on the card in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{line}; class tokens from the seed, mean |value| {tokens[0]:.4f} / "
+          f"{tokens[1]:.4f}; on the card in {time.perf_counter() - t0:.1f} s", flush=True)
     return params, state
 
 
@@ -2418,7 +2617,6 @@ def run_avvp(device="cuda"):
 
     from dg_sct_tpu_torch.configs import AVVPModelConfig
     from dg_sct_tpu_torch.models import avvp, grouping
-    from dg_sct_tpu_torch.models.interleave import fold_adapters_eval
     from dg_sct_tpu_torch.ops import quant
     from dg_sct_tpu_torch.serve import AVVPInferenceEngine
 
@@ -2427,28 +2625,15 @@ def run_avvp(device="cuda"):
     cfg = AVVPModelConfig()
     params, state = import_avvp_census_model(cfg)
     eng = AVVPInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device)
-    folded = [ap for k in eng.params["adapters"] for ap in eng.params["adapters"][k]]
-    eligible = sum(not {"bn1", "bn2", "gate"} & set(ap) for ap in folded)
-    print(f"avvp fold: {eligible} of the {len(folded)} folded adapters hold no bn1, bn2 or gate "
-          f"(K3 takes them)", flush=True)
-    if eligible != len(folded):
-        raise AssertionError("avvp fold: an adapter kept its BN or gate after fold_eval")
+    check_folded(eng, "avvp")
     T, n_cls = cfg.num_frames, cfg.num_classes
     forwards = -(-CLIPS // BATCH)
     videos = [f"llp{i:08d}" for i in range(CLIPS)]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_avvp_") as tmp:
         ds = llp_dataset(write_llp_tree(Path(tmp), videos, cfg), cfg)
         disk = [ds[i] for i in range(len(ds))]  # decoded once; the checks below reuse them
-    stream_probs_all(eng, disk)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    probs, vids, counts = stream_probs_all(eng, disk)
-    dt = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    want = {k: v * forwards for k, v in AVVP_PER_FORWARD.items()}
-    if counts != want:
-        raise AssertionError(f"avvp: launch counts {counts}, expected {want}")
+    (probs, vids, counts), dt, peak = serve_timed("avvp", stream_probs_all, eng, disk,
+                                                  AVVP_PER_FORWARD)
     shapes = {k: v.shape for k, v in probs.items()}
     if (shapes != {"global_prob": (CLIPS, n_cls), "a_prob": (CLIPS, n_cls),
                    "v_prob": (CLIPS, n_cls), "a_frame_prob": (CLIPS, T, n_cls),
@@ -2475,18 +2660,12 @@ def run_avvp(device="cuda"):
     plain = AVVPInferenceEngine(cfg, params, state, kernels=False, **f32)
     kern = AVVPInferenceEngine(cfg, params, state, **f32)
     plain_han, kern_han = [], []
-    with han_logits(plain_han):
-        ref, _, _ = stream_probs_all(plain, disk)
-    calls = {k: [] for k in ("window_attention", "block_attention", "adapter_bottleneck")}
-    with side_by_side("window_attention", calls["window_attention"]), \
-            side_by_side("block_attention", calls["block_attention"]), \
-            side_by_side("adapter_bottleneck", calls["adapter_bottleneck"]), \
-            han_logits(kern_han):
-        got, _, counts = stream_probs_all(kern, disk)
-    if counts != want:
-        raise AssertionError(f"avvp f32: launch counts {counts}, expected {want}")
-    for kernel, c in calls.items():
-        report_calls("avvp f32", kernel, c, bad)
+    f32_against_plain(
+        "avvp f32", stream_probs_all, plain, kern, disk, AVVP_F32_TOL, bad,
+        per_forward=AVVP_PER_FORWARD, checked=K123, planted_in="adapter_bottleneck",
+        faults=K3_PLANTED, flatten=flat, hooks=(han_logits(plain_han), han_logits(kern_han)),
+        detail=lambda got, ref: ", per output " + ", ".join(
+            f"{k} {np.abs(got[k] - ref[k]).max():.3e}" for k in AVVP_OUTPUTS))
     margin, moved, flips = han_margin(plain_han, kern_han)
     print(f"avvp f32: HAN hard assignment over {len(plain_han)} calls: smallest top-1/top-2 "
           f"logit gap {margin:.3e} against the kernels' largest logit change {moved:.3e} (a "
@@ -2494,43 +2673,20 @@ def run_avvp(device="cuda"):
           f"argmax flipped: {flips}", flush=True)
     if flips:
         bad.append(f"avvp f32: the HAN's argmax flipped in {flips} rows between kernels and plain")
-    near, _, _ = stream_probs_all(plain, Nudged(disk, INT8_NUDGE, seed=21))
-    err, sens = spread_err(flat(got), flat(ref)), spread_err(flat(near), flat(ref))
-    print(f"avvp f32: kernels vs plain max |delta| / max |value| over the five outputs "
-          f"{err:.3e} (bound {AVVP_F32_TOL:g}), per output "
-          + ", ".join(f"{k} {np.abs(got[k] - ref[k]).max():.3e}" for k in AVVP_OUTPUTS)
-          + f"; the plain path moves {sens:.3e} with frames and wave changed by {INT8_NUDGE:g} "
-          f"(relative); launches {counts}", flush=True)
-    if not np.isfinite(flat(got)).all() or err > AVVP_F32_TOL:
-        bad.append(f"avvp f32: kernels and plain path disagree ({err:.3e})")
-    read_planted("adapter_bottleneck", lambda: flat(stream_probs_all(kern, disk)[0]), flat(ref),
-                 AVVP_F32_TOL, "avvp f32", bad, faults=K3_PLANTED)
-    del plain, kern, ref, got, near
+    del plain, kern
 
     # clips/s in two wire formats, and a profiled forward
     clips = LLPClips(AVVP_STREAM_CLIPS, cfg, seed=13)
     llp = [disk[i % CLIPS] for i in range(AVVP_STREAM_CLIPS)]  # LLPDataset's items, in memory
-    for fmt, data in (("uint8 frames, int16 wave", clips),
-                      ("LLPDataset's float32 normalized frames and float32 wave", llp)):
-        staged = BATCH * sum(data[0][k].nbytes for k in ("wave", "image", "video_st"))
-        for rnd in (1, 2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stream_probs_all(eng, data)
-            dt = time.perf_counter() - t0
-            print(f"avvp stream: {fmt} ({staged / 1e6:.3f} MB host to device a forward): run "
-                  f"{rnd}: {AVVP_STREAM_CLIPS} clips in {dt:.3f} s = "
-                  f"{AVVP_STREAM_CLIPS / dt:.3f} clips/s (B={BATCH}, chunk 2, bf16)", flush=True)
-    wave, frames, st = (np.stack([clips[0][k]] * BATCH) for k in ("wave", "image", "video_st"))
-    eng.forward_batch(wave, frames, st)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with annotate(grouping, "modality_trans", AVVP_HEAD_GROUPS[0]), \
-            annotate(avvp, "slim_temporal_attention", AVVP_HEAD_GROUPS[1]):
-        profile_run(lambda: eng.forward_batch(wave, frames, st),
-                    f"one AVVP forward of {BATCH} clips", "avvp profile", op_group=avvp_op_group)
-    print(f"avvp profile: peak memory of the profiled forward "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    stream_rates("avvp", stream_probs_all, eng,
+                 (("uint8 frames, int16 wave", clips),
+                  ("LLPDataset's float32 normalized frames and float32 wave", llp)),
+                 ("wave", "image", "video_st"))
+    profile_batch(f"one AVVP forward of {BATCH} clips", "avvp profile", eng,
+                  tuple(np.stack([clips[0][k]] * BATCH) for k in ("wave", "image", "video_st")),
+                  op_group(AVVP_HEAD_GROUPS),
+                  ((grouping, "modality_trans", AVVP_HEAD_GROUPS[0]),
+                   (avvp, "slim_temporal_attention", AVVP_HEAD_GROUPS[1])))
 
     # int8 towers with scales calibrated on a seeded batch
     rs = np.random.RandomState(7)
@@ -2538,19 +2694,15 @@ def run_avvp(device="cuda"):
     cw = on_card((rs.randn(BATCH, T, AVVP_SEGMENT) * 0.1).astype(np.float32))
     ci = on_card(rs.rand(BATCH, T, cfg.swin.img_size, cfg.swin.img_size, 3).astype(np.float32))
     cst = on_card(rs.randn(BATCH, T, 512).astype(np.float32))
-    t0 = time.perf_counter()
-    scales = quant.calibrate_avvp(eng.params, eng.state, eng.cfg, cw, ci, cst, gelu=eng.gelu,
-                                  device=device)
-    print(f"avvp int8: calibrated {len(scales)} activation scales in "
-          f"{time.perf_counter() - t0:.3f} s (one plain bf16 forward of {BATCH} clips)",
-          flush=True)
+    scales = calibrated("avvp", lambda: quant.calibrate_avvp(eng.params, eng.state, eng.cfg, cw,
+                                                             ci, cst, gelu=eng.gelu,
+                                                             device=device),
+                        f"one plain bf16 forward of {BATCH} clips")
     del eng
     q8 = AVVPInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device,
                              int8_towers=True, act_scales=scales)
-    q_probs, _, counts = stream_probs_all(q8, disk)
-    want = {k: v * forwards for k, v in AVVP_INT8_PER_FORWARD.items()}
-    if counts != want or not np.isfinite(flat(q_probs)).all():
-        raise AssertionError(f"avvp int8: launches {counts} (expected {want}) or non-finite")
+    q_probs, _, counts = serve_int8("avvp", stream_probs_all, q8, disk, AVVP_INT8_PER_FORWARD,
+                                    flatten=flat)
     agree = float(((q_probs["global_prob"] >= 0.5) == (probs["global_prob"] >= 0.5)).mean())
     print(f"avvp int8: launches {counts} ({forwards} forwards); drift against bf16 over {CLIPS} "
           f"clips, max |delta|: " + ", ".join(f"{k} {np.abs(q_probs[k] - probs[k]).max():.4f}"
@@ -2560,19 +2712,12 @@ def run_avvp(device="cuda"):
     del q8
 
     # float32: each K4 call of the int8-towers forward against its plain version
-    fp, fs = fold_adapters_eval(params, state, cfg)
-    qp = quant.quantize_eval_params(fp, towers=AVVP_INT8_TOWERS, act_scales=scales)
-    del params, state, fp
     item = lambda k: torch.as_tensor(np.stack([d[k] for d in disk[:BATCH]]), device=device)
     wave, frames, st = item("wave"), item("image"), item("video_st")
-    n_calls, kerr = check_int8_calls(
-        qp, AVVP_INT8_TOWERS,
-        lambda t: avvp.forward(t, fs, wave, frames, st, cfg, kernels=True, device=device),
-        "avvp int8 f32")
-    print(f"avvp int8 f32: each of the {n_calls} K4 calls of a forward against the plain version "
-          f"on its own input: max abs err {kerr:.3e} (atol/rtol {TOL[torch.float32]})",
-          flush=True)
-    del fs, qp
+    check_int8_forward("avvp int8 f32", params, state, cfg, AVVP_INT8_TOWERS, scales,
+                       lambda t, fs: avvp.forward(t, fs, wave, frames, st, cfg, kernels=True,
+                                                  device=device))
+    del params, state
     torch.cuda.empty_cache()
     print(f"avvp: phase 10 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     if bad:
@@ -2793,13 +2938,530 @@ def run_avvp_training(cfg=None, device="cuda"):
     print(f"avvp train: phase 11 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: AVQA serving at full width
+# ---------------------------------------------------------------------------
+
+AVQA_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_avqa_fusion.json"
+AVQA_GROUNDING_CENSUS = (Path(__file__).resolve().parent / "tests" / "golden"
+                         / "census_avqa_grounding.json")
+AVQA_PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48,
+                    "int8_linear": 0}  # the visual gates fold into ln_post: all 48 take K3
+AVQA_INT8_PER_FORWARD = {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 48,
+                         "int8_linear": 142}
+AVQA_SEGMENT = 320000     # avqa_main.make_dataset's wave: the model's clip length a segment
+AVQA_STREAM_QUESTIONS = 16
+AVQA_INT8_TOWERS = ("swin", "htsat")  # what the AVQA engine's int8_towers quantizes
+# the f32 engine with kernels against the plain one, max |delta logit| over
+# max |logit| of the answer logits: above the plain path's own move under a
+# 1e-6 relative change of its inputs and the sound kernels' reading (printed
+# beside), below the readings of the faults K3_PLANTED in front of K3
+# (readings in PERF.md, section 6, the AVQA family)
+AVQA_F32_TOL = 5e-4
+AVQA_WORDS = ["<pad>", "is", "there", "a", "in", "the", "video", "what", "how", "many",
+              "instruments", "are", "sounding", "louder", "than", "which", "first", "violin",
+              "piano", "cello", "guitar", "flute", "drum", "left", "right"]
+AVQA_ANSWERS = ["yes", "no", "zero", "one", "two", "three", "violin", "piano", "cello",
+                "guitar", "flute", "drum", "left", "right"]
+AVQA_TYPES = [["Audio", "Counting"], ["Audio", "Comparative"], ["Visual", "Counting"],
+              ["Visual", "Location"], ["Audio-Visual", "Existential"],
+              ["Audio-Visual", "Counting"], ["Audio-Visual", "Location"],
+              ["Audio-Visual", "Comparative"], ["Audio-Visual", "Temporal"]]
+AVQA_TEMPLATES = [("is there a <Object> in the video?", 1),
+                  ("how many instruments are sounding in the video?", 0),
+                  ("is the <Object> louder than the <Object>?", 2),
+                  ("which <Object> is sounding first?", 1)]
+AVQA_HEAD_GROUPS = ("AVQA question encoder", "AVQA grounding and fusion heads")
+
+
+def write_avqa_tree(root, splits, cfg, seed=0):
+    """A MUSIC-AVQA tree: T JPEG frames at the towers' size a video, a float32
+    wave of T x AVQA_SEGMENT, ques_vocab.txt and ans_vocab.txt, and
+    avqa-{split}.json with templated questions, one video a question,
+    `splits` {split: questions}."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    T, S = cfg.num_frames, cfg.swin.img_size
+    for d in ("frames", "audio"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    (root / "ques_vocab.txt").write_text("\n".join(AVQA_WORDS) + "\n")
+    (root / "ans_vocab.txt").write_text("\n".join(AVQA_ANSWERS) + "\n")
+    objects = AVQA_WORDS[17:23]
+    for split, n in splits.items():
+        samples = []
+        for i in range(n):
+            vid = f"{split}{i:05d}"
+            (root / "frames" / vid).mkdir()
+            for t in range(T):
+                Image.fromarray(rs.randint(0, 256, (S, S, 3), dtype=np.uint8)).save(
+                    root / "frames" / vid / f"{t:08d}.jpg", quality=90)
+            np.save(root / "audio" / f"{vid}.npy",
+                    np.clip(0.3 * rs.randn(T * AVQA_SEGMENT), -1, 1).astype(np.float32))
+            text, slots = AVQA_TEMPLATES[i % len(AVQA_TEMPLATES)]
+            samples.append({"video_id": vid, "question_content": text,
+                            "templ_values": str([objects[(i + k) % 6] for k in range(slots)]),
+                            "anser": AVQA_ANSWERS[(3 * i) % len(AVQA_ANSWERS)],
+                            "type": str(AVQA_TYPES[i % len(AVQA_TYPES)])})
+        (root / f"avqa-{split}.json").write_text(json.dumps(samples))
+    return root
+
+
+def avqa_dataset(root, cfg, split="test"):
+    from dg_sct_tpu_torch.data.avqa import AVQADataset
+
+    return AVQADataset(str(root), str(root / f"avqa-{split}.json"),
+                       frame_dir=str(root / "frames"), audio_dir=str(root / "audio"),
+                       img_size=cfg.swin.img_size, num_frames=cfg.num_frames,
+                       segment_samples=AVQA_SEGMENT, with_nega=False)
+
+
+class AVQAQuestions:
+    """Seeded full-width questions in memory in the serving wire format: an
+    int16 wave of T x AVQA_SEGMENT, uint8 frames, token ids, answers and
+    types."""
+
+    def __init__(self, n, cfg, seed):
+        rs = np.random.RandomState(seed)
+        T, S = cfg.num_frames, cfg.swin.img_size
+        self.wave = (np.clip(0.3 * rs.randn(n, T, AVQA_SEGMENT), -1, 1) * 32767).astype(np.int16)
+        self.frames = rs.randint(0, 256, (n, T, S, S, 3), dtype=np.uint8)
+        self.question = rs.randint(1, len(AVQA_WORDS), (n, cfg.max_qst_len)).astype(np.int64)
+        self.answer = rs.randint(0, len(AVQA_ANSWERS), n).astype(np.int64)
+
+    def __len__(self):
+        return len(self.wave)
+
+    def __getitem__(self, i):
+        return {"wave": self.wave[i], "visual_posi": self.frames[i],
+                "question": self.question[i], "answer": self.answer[i],
+                "type": str(AVQA_TYPES[i % len(AVQA_TYPES)])}
+
+
+def stream_answers_all(eng, ds):
+    """stream_answers over the whole dataset -> (logits, answers, metas,
+    launch counts)."""
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = list(eng.stream_answers(ds))
+    return (np.concatenate([lg for lg, _, _ in out]), np.concatenate([a for _, a, _ in out]),
+            [m for _, _, ms in out for m in ms], launch_counts())
+
+
+def import_avqa_census_models(cfg, device):
+    """The AVQA census state dicts through the port's import path: the
+    grounding generator's (converter, key census with 0 unexplained, shape
+    audit on "meta") and the fusion net's (the same, `from_jax` onto the
+    card)."""
+    from dg_sct_tpu_torch.utils import torch_convert as TC
+
+    t0 = time.perf_counter()
+    line = census_import("avqa import", AVQA_GROUNDING_CENSUS, TC.convert_avqa_grounding,
+                         TC.AVQA_GROUNDING_CKPT_IGNORED_PATTERNS, cfg, device="meta",
+                         grounding=True)[-1]
+    print(f"{line}; shape audit OK", flush=True)
+    params, state, _, line = census_import("avqa import", AVQA_CENSUS, TC.convert_avqa_fusion,
+                                           TC.AVQA_CKPT_IGNORED_PATTERNS, cfg, device=device)
+    gates = [float(ap["gate"]) for ap in params["adapters"]["v_p1"] + params["adapters"]["v_p2"]]
+    print(f"{line}; visual adapter gates from the seed in [{min(gates):.3f}, {max(gates):.3f}]; "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    return params, state
+
+
+def run_avqa(device="cuda"):
+    """Phase 12: the census-built full-width AVQA model served through
+    `stream_answers` from an on-disk MUSIC-AVQA tree (B=2, chunk=2, bf16),
+    the float32 engine with kernels against the plain one (each K1, K2 and
+    K3 call against its plain version, faults planted in front of K3),
+    clips/s in two wire formats, a profiled forward, and int8 towers (each K4
+    call of a float32 int8 forward against its plain version)."""
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import AVQAModelConfig
+    from dg_sct_tpu_torch.models import avqa
+    from dg_sct_tpu_torch.ops import quant
+    from dg_sct_tpu_torch.serve import AVQAInferenceEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = AVQAModelConfig()
+    params, state = import_avqa_census_models(cfg, device)
+    eng = AVQAInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device)
+    check_folded(eng, "avqa", f"; groups {cfg.adapter.num_conv_group}, tokens "
+                              f"{cfg.adapter.num_tokens}")
+    T, n_ans = cfg.num_frames, cfg.ans_vocab_size
+    forwards = -(-CLIPS // BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_avqa_") as tmp:
+        ds = avqa_dataset(write_avqa_tree(Path(tmp), {"test": CLIPS}, cfg), cfg)
+        disk = [ds[i] for i in range(len(ds))]  # decoded once; the checks below reuse them
+    truth = [(int(d["answer"]), d["type"]) for d in disk]
+    (logits, answers, metas, counts), dt, peak = serve_timed("avqa", stream_answers_all, eng,
+                                                             disk, AVQA_PER_FORWARD)
+    if logits.shape != (CLIPS, n_ans) or not np.isfinite(logits).all():
+        raise AssertionError(f"avqa: logits {logits.shape} or non-finite")
+    if metas != truth or not np.array_equal(answers, logits.argmax(-1)):
+        raise AssertionError(f"avqa: metas {metas[:3]}... not in dataset order")
+    print(f"avqa serve: {CLIPS} questions from disk (JPEG frames {cfg.swin.img_size}, .npy waves "
+          f"{T}x{AVQA_SEGMENT}, templated questions) through stream_answers in {dt:.3f} s "
+          f"(B={BATCH}, chunk 2, bf16): logits {logits.shape} finite in [{logits.min():.4f}, "
+          f"{logits.max():.4f}], answers {answers.tolist()}; metas in dataset order; launches "
+          f"{counts} ({forwards} forwards); peak memory {peak / 2**30:.3f} GiB; card "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # float32: the engine with kernels against the plain one on the same questions
+    bad = []  # bound checks, fatal at the end of the phase once every reading is printed
+    f32 = dict(batch_size=BATCH, chunk=2, device=device, compute_dtype=torch.float32)
+    f32_against_plain(
+        "avqa f32", stream_answers_all, AVQAInferenceEngine(cfg, params, state, kernels=False,
+                                                            **f32),
+        AVQAInferenceEngine(cfg, params, state, **f32), disk, AVQA_F32_TOL, bad,
+        per_forward=AVQA_PER_FORWARD, checked=K123, planted_in="adapter_bottleneck",
+        faults=K3_PLANTED, nudge_keys=("visual_posi", "wave"),
+        detail=lambda got, ref: f", answers agreeing "
+                                f"{int((got.argmax(-1) == ref.argmax(-1)).sum())} of {len(got)}")
+
+    # clips/s in two wire formats, and a profiled forward
+    mem = AVQAQuestions(AVQA_STREAM_QUESTIONS, cfg, seed=13)
+    items = [disk[i % CLIPS] for i in range(AVQA_STREAM_QUESTIONS)]  # AVQADataset's, in memory
+    stream_rates("avqa", stream_answers_all, eng,
+                 (("uint8 frames, int16 wave", mem),
+                  ("AVQADataset's float32 normalized frames and float32 wave", items)),
+                 ("wave", "visual_posi", "question"), unit="questions")
+    profile_batch(f"one AVQA forward of {BATCH} questions", "avqa profile", eng,
+                  tuple(np.stack([mem[i][k] for i in range(BATCH)])
+                        for k in ("wave", "visual_posi", "question")),
+                  op_group(AVQA_HEAD_GROUPS),
+                  ((avqa, "qst_encoder", AVQA_HEAD_GROUPS[0]),
+                   (avqa, "heads", AVQA_HEAD_GROUPS[1])))
+
+    # int8 towers with scales calibrated on a seeded batch
+    rs = np.random.RandomState(7)
+    on_card = lambda a: torch.as_tensor(a, device=device).to(torch.bfloat16)
+    cw = on_card((rs.randn(BATCH, T, AVQA_SEGMENT) * 0.1).astype(np.float32))
+    ci = on_card(rs.rand(BATCH, T, cfg.swin.img_size, cfg.swin.img_size, 3).astype(np.float32))
+    cq = torch.as_tensor(rs.randint(1, len(AVQA_WORDS), (BATCH, cfg.max_qst_len)), device=device)
+    scales = calibrated("avqa", lambda: quant.calibrate_avqa(eng.params, eng.state, eng.cfg, cw,
+                                                             ci, cq, gelu=eng.gelu,
+                                                             device=device),
+                        f"one plain bf16 forward of {BATCH} questions, the negative branch fed "
+                        f"the same frames, as the JAX package calibrates")
+    del eng
+    q8 = AVQAInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device,
+                             int8_towers=True, act_scales=scales)
+    q_logits, q_answers, _, counts = serve_int8("avqa", stream_answers_all, q8, disk,
+                                                AVQA_INT8_PER_FORWARD)
+    print(f"avqa int8: launches {counts} ({forwards} forwards); drift against bf16 over {CLIPS} "
+          f"questions: max |delta logit| {np.abs(q_logits - logits).max():.4f} "
+          f"({spread_err(q_logits, logits):.3e} of the largest); answers agreeing "
+          f"{int((q_answers == answers).sum())} of {CLIPS}", flush=True)
+    del q8
+
+    # float32: each K4 call of the int8-towers forward against its plain version
+    item = lambda k: torch.as_tensor(np.stack([d[k] for d in disk[:BATCH]]), device=device)
+    wave, frames, q = item("wave"), item("visual_posi"), item("question")
+    check_int8_forward("avqa int8 f32", params, state, cfg, AVQA_INT8_TOWERS, scales,
+                       lambda t, fs: avqa.forward(t, fs, wave, frames, None, q, cfg,
+                                                  kernels=True, device=device))
+    del params, state
+    torch.cuda.empty_cache()
+    print(f"avqa: phase 12 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: AVQA training at full width
+# ---------------------------------------------------------------------------
+
+AVQA_TRAIN_BATCH = 2     # avqa_main's --batch-size: 20 frames and 20 audio clips a mini-step
+AVQA_TRAIN_LR = 1e-4     # avqa_main's --lr, both stages
+AVQA_TRAIN_STEPS = 3
+# K1-K4 a mini-step: stage 1 runs both frozen towers alone in eval form
+# (Swin-V2 on 2B frames, HTS-AT on B clips); stage 2 only the negative
+# branch's frozen Swin-V2 (B*T frames); the trainer's eval step K3 in
+# float32 on the 24 audio adapters (no BN, no gate: already in folded form)
+AVQA_STAGE1_LAUNCHES = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 0,
+                        "int8_linear": 0}
+AVQA_STAGE2_LAUNCHES = {"window_attention": 2, "block_attention": 22, "adapter_bottleneck": 0,
+                        "int8_linear": 0}
+AVQA_EVAL_LAUNCHES = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 24,
+                      "int8_linear": 0}
+AVQA_MAIN_SPLITS = {"train": 2, "val": 2, "test": 2}  # the entry point's tree: one step a split
+
+
+def seeded_avqa_model(cfg, device="cuda"):
+    """Float32 (params, state) from seed 0 with each adapter's gate_av and
+    each visual adapter's gate in [0.2, 0.6] from seed 1 (zero at init, they
+    would zero their branch)."""
+    from dg_sct_tpu_torch.models import avqa
+    from dg_sct_tpu_torch.models.interleave import ADKEYS
+
+    params, state = avqa.init_avqa_model(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    for k in ADKEYS:
+        for ap in params["adapters"][k]:
+            for g in ("gate", "gate_av"):
+                if g in ap:
+                    ap[g] = torch.empty_like(ap[g]).uniform_(0.2, 0.6, generator=gen)
+    return params, state
+
+
+def avqa_train_batches(cfg, n, seed, device):
+    """`n` seeded synthetic batches of AVQA_TRAIN_BATCH questions (waves of
+    AVQA_SEGMENT a segment) on `device`."""
+    from dg_sct_tpu_torch.data.avqa import synthetic_batch
+
+    return [{k: torch.as_tensor(v, device=device) for k, v in synthetic_batch(
+        AVQA_TRAIN_BATCH, img_size=cfg.swin.img_size, num_frames=cfg.num_frames,
+        seed=seed + i, sr=AVQA_SEGMENT).items()} for i in range(n)]
+
+
+def moved_leaves(tr, fr, p0, what):
+    """{path: unchanged} of every leaf against the host copy `p0`, and a fatal
+    error where a frozen leaf changed."""
+    from dg_sct_tpu_torch.train.ave_train import merge_params
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+
+    now = dict(tree_paths(merge_params(tr, fr)))
+    same = {p: torch.equal(now[p].cpu(), p0[p]) for p in p0}
+    changed = [p for p in same if p[0] in ("swin", "htsat") and not same[p]]
+    if changed:
+        raise AssertionError(f"{what}: frozen leaves changed: {changed[:5]}")
+    return same
+
+
+def train_steps(step, tr, fr, state, opt_state, batches, gen, what, want):
+    """Run the mini-steps, each timed and its launches checked against `want`
+    -> (tr, state, opt_state, seconds, peak GiB)."""
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i, b in enumerate(batches):
+        reset_launch_counts()
+        (tr, state, opt_state, m), dt = timed_step(step, (tr, fr, state, opt_state, b, gen))
+        counts = launch_counts()
+        times.append(dt)
+        loss = float(m["loss"])
+        acc = float(m.get("acc", m.get("qa_acc")))
+        print(f"{what}: mini-step {i + 1}: loss {loss:.4f}, accuracy {acc:.3f}, {dt:.3f} s, "
+              f"launches {counts}", flush=True)
+        if not math.isfinite(loss) or counts != want:
+            raise AssertionError(f"{what}: mini-step {i + 1}: loss {loss} or launches {counts} "
+                                 f"(expected {want})")
+    return tr, state, opt_state, times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def avqa_main_once(cfg, tmp):
+    """`avqa_main.main` in train mode, one epoch each, on the card by default:
+    stage 1, then stage 2 from its checkpoint, over a tree of
+    AVQA_MAIN_SPLITS -> (stage-1 path, stage-2 accuracies, stage-2 path,
+    seconds of each)."""
+    import contextlib
+    import io
+
+    from dg_sct_tpu_torch.train import avqa_main
+
+    root = write_avqa_tree(Path(tmp), AVQA_MAIN_SPLITS, cfg, seed=50)
+    save = root / "ckpt"
+    common = ["--meta", str(root), "--frames", str(root / "frames"), "--audio",
+              str(root / "audio"), "--epochs", "1", "--batch-size", str(AVQA_TRAIN_BATCH),
+              "--save-dir", str(save)]
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        s1 = avqa_main.main(["--mode", "train", "--stage", "1"] + common, cfg=cfg)
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        accs = avqa_main.main(["--mode", "train", "--stage", "2", "--stage1-ckpt", s1] + common,
+                              cfg=cfg)
+    t2 = time.perf_counter()
+    best = save / "avst_best.npz"
+    text = log.getvalue()
+    if (not s1 or not Path(s1).exists() or not best.exists() or not accs
+            or not all(0.0 <= v <= 100.0 for v in accs.values())
+            or "transferred stage-1 heads" not in text or "test Avg accuracy" not in text):
+        raise AssertionError(f"avqa main: no grounding_gen_best.npz or avst_best.npz, or no "
+                             f"test report in range: {accs}, {text[-500:]}")
+    return Path(s1), accs, best, (t1 - t0, t2 - t1)
+
+
+def run_avqa_training(cfg=None, device="cuda"):
+    """Phase 13: `cfg` (None: the full-width AVQAModelConfig()) trained in
+    float32 at the recipe's step (B=2, Adam at 1e-4): AVQA_TRAIN_STEPS
+    grounding mini-steps (plain Adam), the heads taken over, AVQA_TRAIN_STEPS
+    stage-2 mini-steps under StepLR with remat "full", the checks of each; a
+    stage-2 mini-step with remat "none"; a profiled one; the eval step; the
+    entry point once for each stage, and its saved train state served by a
+    bf16 engine."""
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import AVQAModelConfig, TrainConfig
+    from dg_sct_tpu_torch.models import avqa_grounding
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.serve import AVQAInferenceEngine
+    from dg_sct_tpu_torch.train import avqa_main, avqa_train
+    from dg_sct_tpu_torch.utils import checkpoint as ckpt
+    from dg_sct_tpu_torch.utils.tree import tree_map, tree_paths
+    from dg_sct_tpu_torch.weights import from_jax
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = cfg or AVQAModelConfig()
+    name = "AVQAModelConfig()" if cfg == AVQAModelConfig() else cfg
+    batches = avqa_train_batches(cfg, AVQA_TRAIN_STEPS, seed=40, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+
+    # stage 1: the grounding generator, plain Adam
+    params, state = avqa_grounding.init_grounding_model(cfg, seed=0, device=device)
+    tr, fr = avqa_train.partition_params(params)
+    p0 = {p: t.cpu() for p, t in tree_paths(params)}
+    s0 = {p: t.cpu() for p, t in tree_paths(state)}
+    del params
+    opt = avqa_main.plain_adam(AVQA_TRAIN_LR)
+    step, estep = avqa_main.make_stage1_steps(cfg, opt, device=device)
+    print(f"avqa train stage 1: {name} grounding generator in float32, TF32 off; seed 0; "
+          f"B={AVQA_TRAIN_BATCH} (frame 0 of each positive and negative clip, segment 0's "
+          f"{AVQA_SEGMENT} samples), plain Adam at {AVQA_TRAIN_LR:g}; "
+          f"{sum(t.numel() for _, t in tree_paths(tr)) / 1e6:.2f} M trainable parameters",
+          flush=True)
+    tr, state, opt_state, times, peak = train_steps(step, tr, fr, state, opt.init(tr), batches,
+                                                    gen, "avqa train stage 1",
+                                                    AVQA_STAGE1_LAUNCHES)
+    same = moved_leaves(tr, fr, p0, "avqa train stage 1")
+    unmoved = [p for p in same if p[0] not in ("swin", "htsat") and same[p]]
+    bn = [p for p, t in tree_paths(state) if p[-1] in ("mean", "var")
+          and torch.equal(t.cpu(), s0[p])]
+    if unmoved or bn:
+        raise AssertionError(f"avqa train stage 1: unmoved heads {unmoved[:5]} or bn0 {bn}")
+    towers = sum(p[0] in ("swin", "htsat") for p in same)
+    print(f"avqa train stage 1: {AVQA_TRAIN_STEPS} mini-steps: " + ", ".join(f"{t:.3f}"
+                                                                          for t in times)
+          + f" s; peak memory {peak:.3f} GiB; all {len(same) - towers} head leaves (fc_a1, fc_a2, "
+          f"fc_gl, fc1-fc4) changed, {towers} tower leaves bit-identical; bn0's state moved",
+          flush=True)
+    stage1 = {k: tree_map(lambda t: t.cpu().numpy(), v) for k, v in tr.items()}
+    del tr, fr, state, opt_state, step, estep, p0, s0
+
+    # stage 2: the fusion net with the stage-1 heads, Adam under StepLR, remat full
+    params, state = seeded_avqa_model(cfg, device)
+    params = avqa_main.transfer_stage1(params, stage1)
+    tr, fr = avqa_train.partition_params(params)
+    p0 = {p: t.cpu() for p, t in tree_paths(params)}
+    s0 = {p: t.cpu() for p, t in tree_paths(state)}
+    del params
+    tcfg = TrainConfig(batch_size=AVQA_TRAIN_BATCH, lr=AVQA_TRAIN_LR, lr_mlp=AVQA_TRAIN_LR,
+                       accum_steps=1)
+    opt = avqa_train.make_optimizer(tr, tcfg, steps_per_epoch=1)
+    opt_state = opt.init(tr)
+    step = avqa_train.make_train_step(cfg, opt, device=device, remat_policy="full")
+    n_train = sum(t.numel() for _, t in tree_paths(tr))
+    print(f"avqa train stage 2: {name} in float32, TF32 off; seed 0, adapter gates from seed "
+          f"1, the stage-1 heads taken over; B={AVQA_TRAIN_BATCH} "
+          f"({AVQA_TRAIN_BATCH * cfg.num_frames} frames and audio clips of {AVQA_SEGMENT} "
+          f"samples, the negative clips' frames through the frozen Swin-V2), Adam at "
+          f"{AVQA_TRAIN_LR:g} under StepLR, remat full; {n_train / 1e6:.1f} M trainable "
+          f"parameters", flush=True)
+    tr, state, opt_state, times, peak = train_steps(step, tr, fr, state, opt_state, batches, gen,
+                                                    "avqa train stage 2", AVQA_STAGE2_LAUNCHES)
+    same = moved_leaves(tr, fr, p0, "avqa train stage 2")
+    trained = [p for p in same if p[0] not in ("swin", "htsat")]
+    # the loss reads every trainable leaf: the answer the question encoder,
+    # the attention blocks and the fusion, the match terms the grounding and
+    # the audio projection, the towers' tokens every adapter
+    unmoved = [p for p in trained if same[p]]
+    bn = [(p, t) for p, t in tree_paths(state) if p[-1] in ("mean", "var")]
+    still = [p for p, t in bn if torch.equal(t.cpu(), s0[p])]
+    counts_bn = {int(t) for p, t in tree_paths(state) if p[-1] == "count"}
+    if unmoved or still or counts_bn != {AVQA_TRAIN_STEPS}:
+        raise AssertionError(f"avqa train stage 2: unmoved trainable leaves {unmoved[:5]}, BN "
+                             f"state unmoved {still[:3]} or counts {counts_bn}")
+    print(f"avqa train stage 2: {AVQA_TRAIN_STEPS} mini-steps: " + ", ".join(f"{t:.3f}"
+                                                                          for t in times)
+          + f" s; peak memory {peak:.3f} GiB; all {len(trained)} trainable leaves changed "
+          f"(unread: none), {len(same) - len(trained)} frozen ones bit-identical; {len(bn)} BN "
+          f"stats (bn0) moved, count {AVQA_TRAIN_STEPS}; card {torch.cuda.get_device_name(0)}",
+          flush=True)
+    del p0, s0
+
+    groups = profile_run(lambda: step(tr, fr, state, opt_state, batches[0], gen),
+                         f"one stage-2 mini-step of {AVQA_TRAIN_BATCH} questions, remat full",
+                         "avqa train profile", host_ops=False)
+    unprofiled = float(np.median(times[1:]))
+    print(f"avqa train profile: {sum(groups.values()):.3f} ms of device time against the "
+          f"unprofiled mini-steps' median {unprofiled:.3f} s: "
+          f"{100.0 * (1.0 - sum(groups.values()) / 1e3 / unprofiled):.1f}% idle", flush=True)
+
+    none = avqa_train.make_train_step(cfg, opt, device=device, remat_policy="none")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, _, m), dt = timed_step(none, (tr, fr, state, opt_state, batches[0],
+                                         torch.Generator(device=device).manual_seed(5)))
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError("avqa train remat none: the loss is not finite")
+    print(f"avqa train remat none: one stage-2 mini-step of B={AVQA_TRAIN_BATCH} in {dt:.3f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del none
+
+    estep = avqa_train.make_eval_step(cfg, device=device)
+    reset_launch_counts()
+    out = estep(tr, fr, state, batches[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != AVQA_EVAL_LAUNCHES or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"avqa train eval step: launches {counts} (expected "
+                             f"{AVQA_EVAL_LAUNCHES}) or non-finite logits")
+    print(f"avqa train eval step: B={AVQA_TRAIN_BATCH}, float32, no negative branch, logits "
+          f"{tuple(out.shape)} in [{float(out.min()):.4f}, {float(out.max()):.4f}], launches "
+          f"{counts} (K3 in float32 on the 24 audio adapters)", flush=True)
+    del out, batches, step, tr, fr, state, opt_state, opt
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_avqa_main_") as tmp:
+        s1, accs, best, (dt1, dt2) = avqa_main_once(cfg, tmp)
+        size1, size = s1.stat().st_size, best.stat().st_size
+        print(f"avqa main: avqa_main.main(--mode train --stage 1 --epochs 1) then (--stage 2 "
+              f"--stage1-ckpt) over {AVQA_MAIN_SPLITS} questions on disk, on the card by "
+              f"default, in {dt1:.1f} and {dt2:.1f} s: grounding_gen_best.npz of "
+              f"{size1 / 1e9:.3f} GB and avst_best.npz of {size / 1e9:.3f} GB saved; test "
+              f"accuracies " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(accs.items())),
+              flush=True)
+        t0 = time.perf_counter()
+        lp, ls = ckpt.load_params_and_state(str(best))
+        dt = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    eng = AVQAInferenceEngine(cfg, *from_jax(lp, ls, cfg, device=device), batch_size=BATCH,
+                              device=device)
+    del lp, ls
+    mem = AVQAQuestions(BATCH, cfg, seed=31)
+    wave, frames, q = (np.stack([mem[i][k] for i in range(BATCH)])
+                       for k in ("wave", "visual_posi", "question"))
+    reset_launch_counts()
+    out = eng.forward_batch(wave, frames, q)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != AVQA_PER_FORWARD or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"avqa train serve: launches {counts} (expected {AVQA_PER_FORWARD}) "
+                             f"or non-finite logits")
+    print(f"avqa train serve: the entry point's train state of {size / 1e9:.3f} GB read in "
+          f"{dt:.1f} s; a bf16 AVQAInferenceEngine on it (adapters folded) answers {BATCH} "
+          f"questions: answers {out.argmax(-1).tolist()}, launches {counts}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"avqa train: phase 13 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", action="append",
-                    choices=sorted(SOURCES) + ["avs", "avs_train", "avvp", "avvp_train"],
+                    choices=sorted(SOURCES) + ["avs", "avs_train", "avvp", "avvp_train", "avqa",
+                                               "avqa_train"],
                     help="check and time only this kernel (repeatable), or run only phase "
-                         "8 (avs), 9 (avs_train), 10 (avvp) or 11 (avvp_train); skips the "
-                         "other phases")
+                         "8 (avs), 9 (avs_train), 10 (avvp), 11 (avvp_train), 12 (avqa) or 13 "
+                         "(avqa_train); skips the other phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2837,6 +3499,10 @@ def main() -> int:
             run_avvp()
         if "avvp_train" in args.only:
             run_avvp_training()
+        if "avqa" in args.only:
+            run_avqa()
+        if "avqa_train" in args.only:
+            run_avqa_training()
         print(json.dumps(kernels_line(rows, {name: None for name in SOURCES})))
         print(card)
         print(f"partial run ({', '.join(args.only)}): no ok line", flush=True)
@@ -2854,6 +3520,8 @@ def main() -> int:
     run_avs_training()
     run_avvp()
     run_avvp_training()
+    run_avqa()
+    run_avqa_training()
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
-"""Immutable configuration dataclasses of the AVE, AVS and AVVP models and of
-training.
+"""Immutable configuration dataclasses of the AVE, AVS, AVVP and AVQA models
+and of training.
 
-A copy of the AVE, AVS and AVVP parts of `dg_sct_tpu/configs.py` with torch dtypes: the
+A copy of the AVE, AVS, AVVP and AVQA parts of `dg_sct_tpu/configs.py` with torch dtypes: the
 field names, defaults and the two static layout helpers are the same, so a
 configuration means the same model in both packages.
 """
@@ -208,6 +208,31 @@ class AVVPModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AVQAModelConfig:
+    """AVQA model (DG-SCT's `AVQA_Fusion_Net`, and the stage-1 grounding
+    generator on the same widths): the AVE towers with adapters of 2 latent
+    tokens and 4 channel groups, no BN; the visual ones (`adapter_vis`) keep
+    their gate, the audio ones have none. A question encoder over a
+    `qst_vocab_size` vocabulary of `max_qst_len` tokens, audio-visual
+    grounding over the visual token grid, and a `ans_vocab_size`-way answer
+    head at `embed_dim`."""
+    swin: SwinV2Config = dataclasses.field(default_factory=SwinV2Config)
+    htsat: HTSATConfig = dataclasses.field(default_factory=HTSATConfig)
+    adapter: AdapterConfig = dataclasses.field(
+        default_factory=lambda: AdapterConfig(num_tokens=2, num_conv_group=4,
+                                              use_bn=False, use_gate=False))
+    adapter_vis: AdapterConfig = dataclasses.field(
+        default_factory=lambda: AdapterConfig(num_tokens=2, num_conv_group=4,
+                                              use_bn=False, use_gate=True))
+    num_frames: int = 10
+    embed_dim: int = 1536
+    qst_vocab_size: int = 93
+    ans_vocab_size: int = 42
+    max_qst_len: int = 14
+    compute_dtype: Any = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """AVE training recipe (`DG-SCT/AVE/main_trans.py` and `train.sh`): batch
     8, gradients accumulated over 2 mini-steps, Adam at lr 5e-4, StepLR
@@ -226,7 +251,7 @@ class TrainConfig:
 
 def vis_adapter_cfg(cfg) -> AdapterConfig:
     """The visual adapters' options: `adapter_vis` where the model has one
-    (AVS), else the shared `adapter`."""
+    (AVS, AVQA), else the shared `adapter`."""
     return getattr(cfg, "adapter_vis", None) or cfg.adapter
 
 

@@ -3,7 +3,7 @@
 The frontend (STFT, log-mel, bn0, [training: SpecAugment, mixup], mel
 image, patch embed), pre-norm V1 Swin blocks with a relative-position-bias
 table, and V1 patch merging (norm, then reduction), driven block by block
-by the interleave.
+by the interleave, or alone without adapters (`forward_features`).
 """
 from __future__ import annotations
 
@@ -121,3 +121,27 @@ def block_plan(cfg: HTSATConfig):
                      for d in range(cfg.depths[s])])
     return plan
 
+
+def run_tower(params, x, cfg: HTSATConfig, *, kernels=True, gelu="exact"):
+    """Patch tokens -> the last stage's tokens (N, 64, 768) through every
+    stage, without adapters and without drop_path (the JAX package runs the
+    standalone tower without it in training too); no final norm."""
+    for s, stage in enumerate(block_plan(cfg)):
+        for d, m in enumerate(stage):
+            x = block(params["layers"][s]["blocks"][d], x, dim=m["dim"], heads=m["heads"],
+                      res=m["res"], ws=m["ws"], shift=m["shift"], kernels=kernels, gelu=gelu)
+        if "downsample" in params["layers"][s]:
+            x = patch_merging(params["layers"][s]["downsample"], x, cfg.stage_resolution(s),
+                              kernels=kernels)
+    return x
+
+
+def forward_features(params, state, wave, cfg: HTSATConfig, *, train=False, gen=None,
+                     mixup_lambda=None, kernels=True, gelu="exact"):
+    """The tower alone: wave (N, L) -> (tokens (N, 64, 768), new state). The
+    frontend trains as `frontend` does (bn0 on the batch's statistics,
+    SpecAugment from `gen`, mixup); the blocks run `run_tower`. AVQA's
+    grounding stage runs it."""
+    x, new_state = frontend(params, state, wave, cfg, train=train, gen=gen,
+                            mixup_lambda=mixup_lambda)
+    return run_tower(params, x, cfg, kernels=kernels, gelu=gelu), new_state

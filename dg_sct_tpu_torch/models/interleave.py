@@ -13,7 +13,7 @@ DG-SCT adapters between every paired block. Per paired block:
 Unpaired visual blocks run the plain V2 block; stage ends merge patches in
 both towers. The last p2 spatial maps pool each tower's final tokens. The
 audio adapters take `cfg.adapter`, the visual ones `cfg.adapter_vis` where
-the model has one (AVS), else `cfg.adapter`. The
+the model has one (AVS, AVQA), else `cfg.adapter`. The
 blocks run unrolled, in order. In training the tower residuals (never the
 adapters') pass through drop_path, and each paired step and each plain
 visual block is checkpointed under a remat policy.

@@ -2,7 +2,8 @@
 
 timm 0.6.12 `swinv2_large_window12_192_22k` semantics: post-norm residuals,
 scaled-cosine window attention with a clamped logit scale, the log-CPB bias,
-and V2 patch merging (reduction, then norm).
+and V2 patch merging (reduction, then norm). The interleave drives it block
+by block; `forward_features` runs it alone, without adapters.
 """
 from __future__ import annotations
 
@@ -94,3 +95,19 @@ def patch_merging(params, x, res, *, kernels=True):
 def patch_embed_tokens(params, images, cfg: SwinV2Config):
     """(N, H, W, 3) -> (N, (H/4)*(W/4), 192) patch tokens."""
     return patch_embed(params["patch_embed"], images, cfg.patch_size)
+
+
+def forward_features(params, images, cfg: SwinV2Config, *, kernels=True, int8_attn=False,
+                     gelu="exact"):
+    """The tower alone, without adapters and in eval form (no drop_path):
+    (N, H, W, 3) -> (N, 36, 1536) tokens after the final norm. AVQA's
+    negative branch and its grounding stage run it frozen."""
+    x = patch_embed_tokens(params, images, cfg)
+    for s, stage in enumerate(block_plan(cfg)):
+        for d, meta in enumerate(stage):
+            x = block(params["layers"][s]["blocks"][d], x, meta, kernels=kernels,
+                      int8_attn=int8_attn, gelu=gelu)
+        if "downsample" in params["layers"][s]:
+            x = patch_merging(params["layers"][s]["downsample"], x, cfg.stage_resolution(s),
+                              kernels=kernels)
+    return layer_norm(params["norm"], x)

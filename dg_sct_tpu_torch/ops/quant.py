@@ -1,6 +1,6 @@
-"""Int8 serving of the AVE, AVS and AVVP models: static per-column int8
+"""Int8 serving of the AVE, AVS, AVVP and AVQA models: static per-column int8
 weights, symmetric int8 activations, int32 sums (`dg_sct_tpu/ops/quant.py`,
-AVE, AVS and AVVP parts).
+AVE, AVS, AVVP and AVQA parts).
 
   * weights: per-output-column absmax scales, quantized once at load
     (`quantize_linear`, `quantize_tree`, `quantize_eval_params`);
@@ -241,11 +241,26 @@ def calibrate_avvp(params, state, cfg, wave, images, video_st, *, towers=("swin"
         p, state, wave, images, video_st, cfg, kernels=False, gelu=gelu, device=device))
 
 
+def calibrate_avqa(params, state, cfg, wave, images, question, *, towers=("swin", "htsat"),
+                   min_dim=192, gelu="exact", device=None):
+    """`calibrate_ave` for the AVQA eval forward (`models.avqa.forward`), with
+    `images` fed to the negative branch too, as the JAX package calibrates
+    it: that branch's standalone Swin-V2 pass records under the same qids as
+    the adapted one and the maxima merge, so the scales equal JAX's. Serving
+    never runs that branch."""
+    from ..models import avqa
+
+    return _calibrate(params, towers, min_dim, lambda p: avqa.forward(
+        p, state, wave, images, images, question, cfg, kernels=False, gelu=gelu,
+        device=device))
+
+
 def quantize_eval_params(params, *, towers=("swin", "htsat"), min_dim=192, act_scales=None):
-    """A full AVE, AVS or AVVP param tree with the eligible linears of `towers`
-    quantized (heads stay float). Run it after `fold_adapters_eval` and after
-    the cast to the serving type. With `act_scales` from `calibrate_ave` (or
-    `calibrate_avs`, `calibrate_avvp`), the activations take static scales."""
+    """A full AVE, AVS, AVVP or AVQA param tree with the eligible linears of
+    `towers` quantized (heads stay float). Run it after `fold_adapters_eval`
+    and after the cast to the serving type. With `act_scales` from
+    `calibrate_ave` (or `calibrate_avs`, `calibrate_avvp`, `calibrate_avqa`),
+    the activations take static scales."""
     out = dict(params)
     out.update(quantize_tree(_ordered_towers(params, towers), min_dim=min_dim,
                              act_scales=act_scales))

@@ -27,6 +27,12 @@ def bilstm_init(init: Init, in_dim, hidden):
 
 def _lstm(params, x, reverse=False):
     """x: (B, T, D) -> (B, T, H)."""
+    return _lstm_with_state(params, x, reverse)[0]
+
+
+def _lstm_with_state(params, x, reverse=False):
+    """x: (B, T, D) -> ((B, T, H), (h_T, c_T)), the state after the last
+    step taken."""
     B, T, _ = x.shape
     Hd = params["wh"].shape[0]
     xp = x @ params["wi"] + (params["bi"] + params["bh"])
@@ -37,9 +43,20 @@ def _lstm(params, x, reverse=False):
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         outs[t] = h
-    return torch.stack(outs, dim=1)
+    return torch.stack(outs, dim=1), (h, c)
 
 
 def bilstm(params, x):
     """Bidirectional single-layer LSTM: (B, T, D) -> (B, T, 2H)."""
     return torch.cat([_lstm(params["fwd"], x), _lstm(params["bwd"], x, reverse=True)], dim=-1)
+
+
+def lstm(params, x):
+    """Unidirectional single-layer LSTM: (B, T, D) -> (B, T, H)."""
+    return _lstm(params, x)
+
+
+def lstm_with_state(params, x):
+    """Unidirectional single-layer LSTM -> (outputs (B, T, H), (h_T, c_T)),
+    the final hidden and cell states the AVQA question encoder reads."""
+    return _lstm_with_state(params, x)

@@ -22,11 +22,16 @@ wire formats dequantized on the device, requests from memory or a dataset.
         # v_frame_prob (n, T, 25); vids the video ids in dataset order
         # (data.avvp.LLPDataset)
 
+    eng = AVQAInferenceEngine(avqa_cfg, params, state, batch_size=2, chunk=4)
+    for logits, answers, metas in eng.stream_answers(dataset):
+        # logits (n, 42), answers their argmax; metas [(answer index,
+        # question type)] in dataset order (data.avqa.AVQADataset)
+
 wave is float, int16 PCM or mu-law uint8, (n, T, L); frames are float or
 uint8, (n, T, H, W, 3), or, for AVE, planar YUV420: y (n, T, H, W) and uv
 (n, T, H/2, W/2, 2) uint8.
 
-Both engines stream as JAX's `_StreamingEngineBase` does: worker threads
+The engines stream as JAX's `_StreamingEngineBase` does: worker threads
 decode `chunk` batches ahead (`data.ave.batched_iterator`), the ragged last
 batch is padded with its last clip and the last chunk with its last batch,
 a side stream stages each chunk from pinned host buffers
@@ -41,10 +46,10 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from .configs import AVEModelConfig, AVSModelConfig, AVVPModelConfig
+from .configs import AVEModelConfig, AVQAModelConfig, AVSModelConfig, AVVPModelConfig
 from .data.ave import batched_iterator, device_prefetch
 from .device import resolve_device
-from .models import ave, avs, avvp
+from .models import avqa, ave, avs, avvp
 from .models.interleave import fold_adapters_eval
 from .ops import quant
 from .ops.basic import (GELU_MODES, dequantize_mulaw_u8, normalize_frames_u8,
@@ -375,3 +380,53 @@ class AVVPInferenceEngine(_StreamingEngine):
             rows = [(c, len(row)) for c, row in enumerate(vids) if row]
             yield ({k: np.concatenate([v[c, :n] for c, n in rows]) if rows else v[:0, 0]
                     for k, v in out.items()}, [v for row in vids for v in row])
+
+
+class AVQAInferenceEngine(_StreamingEngine):
+    def __init__(self, cfg: AVQAModelConfig, params, state, *, batch_size: int = 4,
+                 chunk: int = 4, device=None, compute_dtype=torch.bfloat16, prefetch: int = 2,
+                 num_workers: int = 8, gelu: Optional[str] = None, kernels: bool = True,
+                 fold_eval: bool = True, int8_towers: bool = False, act_scales=None):
+        """Streaming audio-visual question answering: the answer logits of
+        each question. `params`/`state` as `models.avqa.init_avqa_model` or
+        `weights.from_jax` give them, float32. The negative branch, which
+        only training reads, never runs. `gelu`, `kernels`, `fold_eval` (the
+        visual adapters' gates go into ln_post, so all 48 adapters take K3),
+        `int8_towers` with `act_scales` (from `quant.calibrate_avqa`) and the
+        streaming knobs as `AVEInferenceEngine` takes them."""
+        super().__init__(cfg, params, state, batch_size=batch_size, chunk=chunk, device=device,
+                         compute_dtype=compute_dtype, prefetch=prefetch,
+                         num_workers=num_workers, gelu=gelu, kernels=kernels,
+                         fold_eval=fold_eval, int8_towers=int8_towers, act_scales=act_scales)
+
+    @torch.inference_mode()
+    def forward_batch(self, wave, frames, question):
+        """One batch of exactly `batch_size` questions -> the answer logits
+        (B, ans_vocab), float32 on the card."""
+        out = avqa.forward(self.params, self.state, self._wave(self._to_dev(wave)),
+                           self._frames(self._to_dev(frames)), None, self._to_dev(question),
+                           self.cfg, kernels=self.kernels, gelu=self.gelu, device=self.device)
+        return out["out_qa"].float()
+
+    @staticmethod
+    def _meta(batch, first, n):
+        return list(zip(np.asarray(batch["answer"][:n]).tolist(), batch["type"][:n]))
+
+    def _arrays(self, batch):
+        return ("wave", "visual_posi", "question")
+
+    @torch.inference_mode()
+    def _run_chunk(self, block):
+        return {"out_qa": torch.stack([
+            self.forward_batch(block["wave"][c], block["visual_posi"][c], block["question"][c])
+            for c in range(block["wave"].shape[0])])}
+
+    def stream_answers(self, dataset) -> Iterator[Tuple[np.ndarray, np.ndarray, list]]:
+        """Yield (logits (n, ans_vocab) float32, their argmax (n,), metas
+        [(answer index, type)]) per chunk, in dataset order, the padding
+        removed."""
+        for out, metas in self.stream(dataset):
+            arr = out["out_qa"]                                     # (chunk, B, n_ans)
+            rows = [arr[c, :len(row)] for c, row in enumerate(metas) if row]
+            logits = np.concatenate(rows) if rows else arr[:0, 0]
+            yield logits, logits.argmax(-1), [m for row in metas for m in row]

@@ -1,5 +1,5 @@
-"""One command: import a DG-SCT AVE, AVS or AVVP checkpoint into the port,
-and score AVE.
+"""One command: import a DG-SCT AVE, AVS, AVVP or AVQA checkpoint into the
+port, and score AVE.
 
     python -m dg_sct_tpu_torch.tools.import_eval \\
         --ave-ckpt /path/to/best_82.18.pt \\
@@ -34,8 +34,14 @@ device (exit 3), and `--save` (the bundle adds "pvt_backbone", the bypassed
 PVT-v2-b5 tower, where the checkpoint has it); it scores no metric.
 `--task avvp` (the AVVP `MGN_Net`, `MGN_Net.pt`) likewise: the census
 against `AVVP_CKPT_IGNORED_PATTERNS` (exit 2), the shape audit at
-`AVVPModelConfig()` (exit 3) and `--save`; no metric. The other tasks are
-not ported yet.
+`AVVPModelConfig()` (exit 3) and `--save`; no metric. `--task avqa` (the
+stage-2 `AVQA_Fusion_Net`, `avst_best.pt`, adapters of 4 channel groups) and
+`--task avqa_grounding` (the stage-1 `AVQA_AVatt_Grounding`,
+`lavish_grounding_gen_best.pt`) likewise, against
+`AVQA_CKPT_IGNORED_PATTERNS` and `AVQA_GROUNDING_CKPT_IGNORED_PATTERNS`, the
+shapes at `AVQAModelConfig()`. As in the JAX tool, the converter runs before
+the census, so a checkpoint of another family stops at its first missing
+key (KeyError).
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ import sys
 import numpy as np
 import torch
 
-from ..configs import AVEModelConfig, AVSModelConfig, AVVPModelConfig, ave_adapter_dims
+from ..configs import (AVEModelConfig, AVQAModelConfig, AVSModelConfig, AVVPModelConfig,
+                       ave_adapter_dims)
 from ..data.ave import AVEDataset
 from ..serve import AVEInferenceEngine
 from ..train.metrics import ave_accuracy
@@ -54,17 +61,17 @@ from ..utils import torch_convert as TC
 from ..weights import from_jax
 
 REFERENCE_ACC = 82.18
-NOT_PORTED = "not ported yet (ROADMAP.md, queue 1)"
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--task", default="ave",
                    choices=("ave", "avvp", "avs", "avqa", "avqa_grounding"),
-                   help="checkpoint family; ave, avs and avvp are ported")
+                   help="checkpoint family")
     p.add_argument("--ave-ckpt", "--ckpt", required=True, dest="ckpt", metavar="CKPT",
                    help="the trained checkpoint (best_82.18.pt, S4_pvt_best.pth with "
-                        "--task avs, MGN_Net.pt with --task avvp)")
+                        "--task avs, MGN_Net.pt with --task avvp, avst_best.pt with --task "
+                        "avqa, lavish_grounding_gen_best.pt with --task avqa_grounding)")
     p.add_argument("--htsat-ckpt", default=None,
                    help="HTSAT_AudioSet_Saved_1.ckpt (overlays the frozen audio tower "
                         "with pre-finetune weights)")
@@ -135,11 +142,29 @@ def import_avvp_checkpoint(ckpt: str, cfg: AVVPModelConfig | None = None, lax=Fa
     return params, state, report
 
 
-def _audit(params, state, cfg, device):
-    """The shape audit: the converted tree through `from_jax`; exit 3 on a
-    missing, extra or misshapen leaf."""
+def import_avqa_checkpoint(ckpt: str, cfg: AVQAModelConfig | None = None, *, grounding=False,
+                           lax=False, out=None):
+    """-> (params, state, report): the converted numpy tree of an AVQA stage-2
+    checkpoint (or, with `grounding`, of a stage-1 one) and its census.
+    Raises SystemExit(2) on unexplained keys unless `lax`."""
+    cfg = cfg or AVQAModelConfig()
+    sd = TC.track(TC.load_torch_file(ckpt))
+    if grounding:
+        params, state = TC.convert_avqa_grounding(sd)
+        ignored = TC.AVQA_GROUNDING_CKPT_IGNORED_PATTERNS
+    else:
+        params, state = TC.convert_avqa_fusion(sd, len(ave_adapter_dims(cfg.swin, cfg.htsat)),
+                                               cfg.adapter.num_conv_group)
+        ignored = TC.AVQA_CKPT_IGNORED_PATTERNS
+    report = _census(sd, "census", lax, out, ignored)
+    return params, state, report
+
+
+def _audit(params, state, cfg, device, **kw):
+    """The shape audit: the converted tree through `from_jax` (`kw`: its
+    `grounding`); exit 3 on a missing, extra or misshapen leaf."""
     try:
-        tree = from_jax(params, state, cfg, device=device)
+        tree = from_jax(params, state, cfg, device=device, **kw)
     except ValueError as e:
         print(f"shape audit: {e}")
         raise SystemExit(3) from e
@@ -153,7 +178,8 @@ def _save(path, bundle):
         print(f"saved converted checkpoint -> {path}")
 
 
-def main(argv=None, cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig | None = None):
+def main(argv=None,
+         cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig | AVQAModelConfig | None = None):
     """Runs the steps above; returns the accuracy in % when it scored a
     split, else None."""
     args = parse_args(argv)
@@ -168,8 +194,13 @@ def main(argv=None, cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig | Non
         _audit(params, state, cfg or AVVPModelConfig(), "meta")
         _save(args.save, {"params": params, "state": state})
         return None
-    if args.task != "ave":
-        raise NotImplementedError(f"--task {args.task}: {NOT_PORTED}")
+    if args.task in ("avqa", "avqa_grounding"):
+        grounding = args.task == "avqa_grounding"
+        params, state, _ = import_avqa_checkpoint(args.ckpt, cfg, grounding=grounding,
+                                                  lax=args.lax)
+        _audit(params, state, cfg or AVQAModelConfig(), "meta", grounding=grounding)
+        _save(args.save, {"params": params, "state": state})
+        return None
     cfg = cfg or AVEModelConfig()
     params, state, _ = import_ave_checkpoint(args.ckpt, args.htsat_ckpt, cfg, lax=args.lax)
     params_t, state_t = _audit(params, state, cfg,

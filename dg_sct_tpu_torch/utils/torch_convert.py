@@ -1,19 +1,22 @@
-"""DG-SCT PyTorch checkpoint -> the port's AVE, AVS or AVVP parameter tree, in
-numpy.
+"""DG-SCT PyTorch checkpoint -> the port's AVE, AVS, AVVP or AVQA parameter
+tree, in numpy.
 
-The AVE, AVS and AVVP parts of `dg_sct_tpu/utils/torch_convert.py`: a flat
+The AVE, AVS, AVVP and AVQA parts of `dg_sct_tpu/utils/torch_convert.py`: a flat
 `{name: np.ndarray}` state dict (`load_torch_file`) of the full AVE
 `best_82.18.pt` MMIL_Net (timm swinv2 tower under `swin.`, HTS-AT under
 `htsat.`, adapters and heads), of `HTSAT_AudioSet_Saved_1.ckpt` with its
 `sed_model.` prefix stripped, or of the AVS S4 `Pred_endecoder`
 (`convert_avs_model`, with its bypassed PVT-v2-b5 tower as a numpy tree
-only) or of the AVVP `MGN_Net` (`convert_avvp_model`) becomes the nested
+only), of the AVVP `MGN_Net` (`convert_avvp_model`) or of AVQA's
+`AVQA_Fusion_Net` and stage-1 `AVQA_AVatt_Grounding`
+(`convert_avqa_fusion`, `convert_avqa_grounding`) becomes the nested
 (params, state) tree of numpy arrays that
 `weights.from_jax` carries onto the device and checks leaf by leaf. A
 leading `module.` (nn.DataParallel) is stripped. `track` and
 `census_report` account for every checkpoint key: consumed, ignored by
 `AVE_CKPT_IGNORED_PATTERNS` (or `AVS_CKPT_IGNORED_PATTERNS`,
-`AVVP_CKPT_IGNORED_PATTERNS`), or unexplained.
+`AVVP_CKPT_IGNORED_PATTERNS`, `AVQA_CKPT_IGNORED_PATTERNS`,
+`AVQA_GROUNDING_CKPT_IGNORED_PATTERNS`), or unexplained.
 """
 from __future__ import annotations
 
@@ -581,6 +584,51 @@ def convert_avvp_model(sd, num_adapters=12, groups=2, depths=(3, 3, 6)):
 
 
 # ---------------------------------------------------------------------------
+# AVQA: the stage-1 grounding generator and the stage-2 fusion net
+# (DG-SCT's `grounding_gen/nets_grd_gen.py` and `net_grd_avst/net_avst.py`)
+# ---------------------------------------------------------------------------
+
+AVQA_GROUNDING_HEADS = ("fc_a1", "fc_a2", "fc_gl", "fc1", "fc2", "fc3", "fc4")
+
+
+def convert_qst_encoder(sd, pre="question_encoder"):
+    """QstEncoder: the word embedding, the LSTM (one layer) and fc."""
+    return {"word2vec": np.asarray(sd[f"{pre}.word2vec.weight"]),
+            "lstm": convert_lstm_dir(sd, f"{pre}.lstm"),
+            "fc": convert_linear(sd, f"{pre}.fc")}
+
+
+def convert_avqa_grounding(sd):
+    """AVQA_AVatt_Grounding state dict (`lavish_grounding_gen_best.pt`) ->
+    (params, state) of `models.avqa_grounding.init_grounding_model`."""
+    sd = strip_prefix(sd, "module.")
+    htsat, htsat_state = convert_htsat(subdict(sd, "htsat."))
+    params = {"swin": convert_swinv2(subdict(sd, "swin.")), "htsat": htsat}
+    for n in AVQA_GROUNDING_HEADS:
+        params[n] = convert_linear(sd, n)
+    return params, {"htsat": htsat_state}
+
+
+def convert_avqa_fusion(sd, num_adapters=12, groups=4):
+    """AVQA_Fusion_Net state dict (`avst_best.pt`) -> (params, state) of
+    `models.avqa.init_avqa_model`. AVQA's adapters have 4 channel groups."""
+    sd = strip_prefix(sd, "module.")
+    swin = convert_swinv2(subdict(sd, "swin."))
+    htsat, htsat_state = convert_htsat(subdict(sd, "htsat."))
+    adapters, adapter_state = convert_adapter_lists(sd, num_adapters, groups)
+    params = {"swin": swin, "htsat": htsat, "adapters": adapters,
+              "norm1": convert_layernorm(sd, "norm1"),
+              "norm2": convert_layernorm(sd, "norm2"),
+              "attn_a": convert_mha(sd, "attn_a"),
+              "attn_v": convert_mha(sd, "attn_v"),
+              "question_encoder": convert_qst_encoder(sd)}
+    for n in AVQA_GROUNDING_HEADS + ("fc_fusion", "linear11", "linear12", "linear21",
+                                     "linear22", "fc_ans"):
+        params[n] = convert_linear(sd, n)
+    return params, {"htsat": htsat_state, "adapters": adapter_state}
+
+
+# ---------------------------------------------------------------------------
 # Census accounting: every key of the reference checkpoints is either
 # consumed by the converters above or matches one of these documented
 # ignore patterns (held against the key census of best_82.18.pt and
@@ -643,6 +691,15 @@ AVVP_CKPT_IGNORED_PATTERNS = _SHARED_TOWER_IGNORED + (
     # Encoder/Decoder prototype layers (the clones run instead)
     r"^temporal_attn\.\w+\.(encoder_layer|decoder_layer)\.",
 )
+
+
+AVQA_CKPT_IGNORED_PATTERNS = _SHARED_TOWER_IGNORED + (
+    # defined (net_avst.py:275-276, 291) but never called in the forward
+    r"^fc_a[12]_pure\.",
+    r"^norm3\.",
+)
+
+AVQA_GROUNDING_CKPT_IGNORED_PATTERNS = _SHARED_TOWER_IGNORED
 
 
 def census_report(sd: TrackedSD, ignored=AVE_CKPT_IGNORED_PATTERNS):

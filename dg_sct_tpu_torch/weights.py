@@ -1,4 +1,5 @@
-"""Carries the JAX package's AVE, AVS or AVVP (params, state) across to the port.
+"""Carries the JAX package's AVE, AVS, AVVP or AVQA (params, state) across to
+the port.
 
 The port keeps the JAX tree: the same nested dict keys and list lengths, and
 the same leaf shapes (linear kernels (in, out), grouped kernels
@@ -13,8 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .configs import AVEModelConfig, AVSModelConfig, AVVPModelConfig
+from .configs import AVEModelConfig, AVQAModelConfig, AVSModelConfig, AVVPModelConfig
 from .device import resolve_device
+from .models.avqa import init_avqa_model
+from .models.avqa_grounding import init_grounding_model
 from .models.ave import init_ave_model
 from .models.avs import init_avs_model
 from .models.avvp import init_avvp_model
@@ -43,18 +46,25 @@ def _convert(ref, src, path, device):
 
 
 _INITS = ((AVSModelConfig, init_avs_model), (AVVPModelConfig, init_avvp_model),
-          (AVEModelConfig, init_ave_model))
+          (AVQAModelConfig, init_avqa_model), (AVEModelConfig, init_ave_model))
 
 
-def from_jax(params_np, state_np, cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig, *,
-             device=None):
+def from_jax(params_np, state_np,
+             cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig | AVQAModelConfig, *,
+             device=None, grounding=False):
     """(params, state) of `dg_sct_tpu.models.ave.init_ave_model` (or, for an
     AVSModelConfig, `models.avs.init_avs_model`, for an AVVPModelConfig
-    `models.avvp.init_avvp_model`), as nested dicts and lists of numpy
-    arrays -> the port's float32 (params, state) on `device` (None: the
-    card). Every leaf must be consumed and every shape must match."""
+    `models.avvp.init_avvp_model`, for an AVQAModelConfig
+    `models.avqa.init_avqa_model`, and with `grounding=True` AVQA's stage-1
+    `models.avqa_grounding.init_grounding_model`, which shares the AVQA
+    configuration), as nested dicts and lists of numpy arrays -> the port's
+    float32 (params, state) on `device` (None: the card). Every leaf must be
+    consumed and every shape must match."""
     device = resolve_device(device)
-    init = next(fn for kind, fn in _INITS if isinstance(cfg, kind))
+    if grounding and not isinstance(cfg, AVQAModelConfig):
+        raise ValueError("grounding=True takes an AVQAModelConfig")
+    init = init_grounding_model if grounding else next(
+        fn for kind, fn in _INITS if isinstance(cfg, kind))
     ref_p, ref_s = init(cfg, device="meta")
     return (_convert(ref_p, params_np, "params", device),
             _convert(ref_s, state_np, "state", device))
