@@ -196,7 +196,40 @@ Phases, each fatal on failure:
      on-disk tree with train, val and test splits: they must save
      `grounding_gen_best.npz` and `avst_best.npz` and report per-type
      accuracies in [0, 100]; and that train state loaded into a bf16
-     AVQAInferenceEngine, which answers 2 questions (2/34/48/0).
+     AVQAInferenceEngine, which answers 2 questions (2/34/48/0);
+  14. run the CLIP x CLAP pretrain model at full width in float32, TF32 off
+     (PretrainModelConfig(): CLIP ViT-B/32 at 224 and HTS-AT paired 1:1 over
+     12 blocks, 48 adapters, the CLIP text tower over 141 seeded class
+     prompts; random weights from seed 0, adapter gates from seed 1): the
+     CLAP text features through a seeded RoBERTa-base (`pretrain clap:`,
+     timed), the zero-shot forward at B=2 (20 frames of 224, 20 clips of
+     320000 samples) on the adapters as loaded (launches K1/K2/K3/K4 =
+     0/12/0/0) and folded (0/12/48/0), each timed with its peak memory; each
+     K2 and K3 call against its plain version on its own input (TOL); v_cls,
+     a_cls and the contrastive logits with kernels against the plain
+     forward within PRETRAIN_F32_TOL of each one's largest value, beside the
+     plain path's move under a 1e-6 relative change of its inputs and two
+     faults planted in front of K3, which the bound must catch (event_scores
+     reported beside, with its argmax agreement); one profiled folded
+     forward (the text tower, the ViT, HTS-AT and the adapters as groups by
+     their outermost profiler range). Phase 3 also checks and times K3 at
+     the ViT adapters' shape (1000 rows, C = 768, two groups) in both
+     dtypes (`pretrain k3:` lines). The bounds of this phase are checked
+     once every reading is printed;
+  15. train the same model in float32 without remat at `pretrain_main`'s
+     step (plain Adam at 1e-4): 3 mini-steps of B=2 with a generator
+     (SpecAugment), each loss finite and launching nothing, every trainable
+     leaf changed after them but prompt_learner.meta_net's (the forward
+     never reads them), every frozen leaf bit-identical, the BN state of bn0
+     and the adapters moved; each mini-step's time and the peak memory; one
+     profiled mini-step; one mini-step at the recipe's B=8 (time, peak); one
+     few-shot mini-step for each loss (clip classes; segment events with
+     the background prompt), the gradients clipped by their global norm,
+     then Adam; then `pretrain_main.main(["--mode", "train", ...])` over an
+     on-disk VGGSound-AVEL tree (it must save `pretrain_best.npz`), and from
+     it `zero_shot_main` in eval mode on AVE and LLP trees and
+     `few_shot_main` in train mode on the AVE tree, once each, on the card
+     by default: accuracies in [0, 100].
 It then prints the kernels line (launches from phase 4, K4's from phase 7),
 the card line and, last, the ok line.
 
@@ -207,14 +240,18 @@ the card line and, last, the ok line.
     python3 chip_smoke.py --only avvp_train           # phases 1, 2 and 11
     python3 chip_smoke.py --only avqa                 # phases 1, 2, AVQA's K3 and 12
     python3 chip_smoke.py --only avqa_train           # phases 1, 2, AVQA's K3 and 13
+    python3 chip_smoke.py --only pretrain             # phases 1, 2, the pretrain K3 and 14
+    python3 chip_smoke.py --only pretrain_train       # phases 1, 2, the pretrain K3 and 15
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 to 13 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
-`avvp`, `avvp_train`, `avqa` and `avqa_train` run phase 8, 9, 10, 11, 12 or
-13 alone. Such a run prints no ok line. Phase 10's K1-K3 shapes are phase
+phases 4 to 15 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
+`avvp`, `avvp_train`, `avqa`, `avqa_train`, `pretrain` and `pretrain_train`
+run phase 8, 9, 10, 11, 12, 13, 14 or 15 alone. Such a run prints no ok line. Phase 10's K1-K3 shapes are phase
 4's (20 frames and 20 audio clips a forward; a 1 s wave is resized to the
 same log-mel image), which phase 3 checks and times; phase 12's K1 and K2
-shapes are phase 4's too, its K3 shapes phase 3's AVQA rows.
+shapes are phase 4's too, its K3 shapes phase 3's AVQA rows. Phase 14's K2
+shapes and its audio adapters' K3 shapes are phase 4's HTS-AT ones; its 24
+visual adapters' K3 shape is phase 3's pretrain row.
 """
 from __future__ import annotations
 
@@ -395,6 +432,19 @@ def avqa_k3_cases():
             key = (frames * N, C, g, C // r // g, True)
             k3[key] = k3.get(key, 0) + 2
     return k3
+
+
+def pretrain_k3_case():
+    """(K3 key, calls a pretrain forward) of the pretrain model's 24 visual
+    adapters, folded (B=2 clips: BATCH * 10 frames of 50 ViT tokens at C =
+    768, two groups); its 24 audio adapters take phase 4's HTS-AT shapes."""
+    from dg_sct_tpu_torch.configs import PretrainModelConfig
+
+    cfg = PretrainModelConfig()
+    C, g = cfg.clip.vision_width, cfg.adapter.num_conv_group
+    tokens = (cfg.clip.image_size // cfg.clip.vision_patch) ** 2 + 1
+    return (BATCH * cfg.num_frames * tokens, C, g, C // cfg.adapter.reduction_factor // g,
+            True), 2 * cfg.clip.vision_layers
 
 
 def avs_attention_cases():
@@ -672,6 +722,8 @@ def check_kernels(cfg, only=None):
             print("kernel", json.dumps(row), flush=True)
     if not only or "adapter_bottleneck" in only or "avqa" in only:
         rows += check_avqa_k3(gen)
+    if not only or {"adapter_bottleneck", "pretrain", "pretrain_train"} & set(only):
+        rows += check_pretrain_k3(gen)
     # checks only, not timed: K3 off the main path, K1 and K2 at phase 8's shapes
     extra = [("adapter_bottleneck", key, "off the main path") for key in K3_EXTRA]
     extra += [(name, key, f"AVS path, {n} a forward") for name, key, n in avs_attention_cases()]
@@ -718,6 +770,34 @@ def check_avqa_k3(gen):
               f"shapes where the kernel loses to composed on the card: "
               f"{[r['case'][:2] for r in mine if r['kernel_device_ms'] > r['composed_device_ms']]}",
               flush=True)
+    return rows
+
+
+def check_pretrain_k3(gen):
+    """K3 at the pretrain model's visual adapter shape, both dtypes: checked
+    against its plain version and timed beside the composed library calls
+    and the bound (`pretrain k3:`)."""
+    key, n = pretrain_k3_case()
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        kern, _, _, composed, flops, nbytes, ref, err = check_case("adapter_bottleneck", key,
+                                                                   dtype, gen)
+        b_ms, ops_ms, bytes_ms = bound(flops, nbytes, dtype)
+        k_ms, k_dev, k_host = time_ms(kern)
+        c_ms, c_dev, _ = time_ms(composed)
+        row = dict(name="adapter_bottleneck", case=list(key),
+                   dtype=str(dtype).replace("torch.", ""), per_forward=0, pretrain_per_forward=n,
+                   checked_only=True, max_abs_err=err, kernel_ms=k_ms, kernel_device_ms=k_dev,
+                   kernel_host_ms=k_host, composed_ms=c_ms, composed_device_ms=c_dev,
+                   bound_ms=b_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   composed_err=(composed().float() - ref.float()).abs().max().item())
+        rows.append(row)
+        print("kernel pretrain", json.dumps(row), flush=True)
+        print(f"pretrain k3: {row['dtype']}, rows {key[0]}, C {key[1]}, {key[2]} groups, go "
+              f"{key[3]} (the ViT's 50 tokens a frame), {n} calls a folded forward: kernel "
+              f"{n * k_ms:.4f} ms as issued, {n * k_dev:.4f} ms on the card; composed library "
+              f"calls {n * c_ms:.4f} / {n * c_dev:.4f} ms; bound {n * b_ms:.4f} ms "
+              f"({row['bound_by']}); max abs err {err:.3e} (atol/rtol {TOL[dtype]})", flush=True)
     return rows
 
 
@@ -3218,15 +3298,15 @@ def avqa_train_batches(cfg, n, seed, device):
         seed=seed + i, sr=AVQA_SEGMENT).items()} for i in range(n)]
 
 
-def moved_leaves(tr, fr, p0, what):
+def moved_leaves(tr, fr, p0, what, frozen=("swin", "htsat")):
     """{path: unchanged} of every leaf against the host copy `p0`, and a fatal
-    error where a frozen leaf changed."""
+    error where a leaf under a `frozen` root changed."""
     from dg_sct_tpu_torch.train.ave_train import merge_params
     from dg_sct_tpu_torch.utils.tree import tree_paths
 
     now = dict(tree_paths(merge_params(tr, fr)))
     same = {p: torch.equal(now[p].cpu(), p0[p]) for p in p0}
-    changed = [p for p in same if p[0] in ("swin", "htsat") and not same[p]]
+    changed = [p for p in same if p[0] in frozen and not same[p]]
     if changed:
         raise AssertionError(f"{what}: frozen leaves changed: {changed[:5]}")
     return same
@@ -3245,9 +3325,10 @@ def train_steps(step, tr, fr, state, opt_state, batches, gen, what, want):
         counts = launch_counts()
         times.append(dt)
         loss = float(m["loss"])
-        acc = float(m.get("acc", m.get("qa_acc")))
-        print(f"{what}: mini-step {i + 1}: loss {loss:.4f}, accuracy {acc:.3f}, {dt:.3f} s, "
-              f"launches {counts}", flush=True)
+        acc = m.get("acc", m.get("qa_acc"))
+        acc = "" if acc is None else f"accuracy {float(acc):.3f}, "
+        print(f"{what}: mini-step {i + 1}: loss {loss:.4f}, {acc}{dt:.3f} s, launches {counts}",
+              flush=True)
         if not math.isfinite(loss) or counts != want:
             raise AssertionError(f"{what}: mini-step {i + 1}: loss {loss} or launches {counts} "
                                  f"(expected {want})")
@@ -3454,14 +3535,450 @@ def run_avqa_training(cfg=None, device="cuda"):
     print(f"avqa train: phase 13 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the CLIP x CLAP pretrain model's zero-shot forward at full width
+# ---------------------------------------------------------------------------
+
+# K1/K2/K3/K4 a pretrain forward: K2 in HTS-AT's 12 eval blocks; K3 in all
+# 48 adapters once they are folded, none on the adapters as loaded
+PRETRAIN_PER_FORWARD = {"window_attention": 0, "block_attention": 12, "adapter_bottleneck": 0,
+                        "int8_linear": 0}
+PRETRAIN_FOLDED_PER_FORWARD = dict(PRETRAIN_PER_FORWARD, adapter_bottleneck=48)
+# f32 kernels against plain: the largest |delta| of v_cls, a_cls and the two
+# contrastive logits, each over its own largest value; above the sound
+# readings and the plain path's move under a 1e-6 nudge (printed beside),
+# below faults planted in front of K3 (readings in PERF.md, section 6)
+PRETRAIN_F32_TOL = 5e-4
+PRETRAIN_OUTPUTS = ("v_cls", "a_cls", "logits_audio_image", "logits_image_audio")
+PRETRAIN_GROUPS = ("pretrain text tower", "pretrain ViT", "pretrain HTS-AT", "pretrain adapters")
+PRETRAIN_WORDS = ("playing", "dog", "people", "engine", "bird", "guitar", "singing", "water",
+                  "car", "baby", "violin", "crowd")
+
+
+def pretrain_names(n):
+    """`n` seeded class names of two to four words, VGGSound's style."""
+    rs = np.random.RandomState(5)
+    return [" ".join(PRETRAIN_WORDS[j] for j in rs.randint(len(PRETRAIN_WORDS), size=2 + i % 3))
+            + f" {i}" for i in range(n)]
+
+
+def seeded_pretrain_model(cfg, names, device, clap_text_features=None):
+    """Float32 (params, state, buffers) from seed 0, each adapter's gate and
+    gate_av in [0.2, 0.6] from seed 1 (zero at init, they would zero the
+    adapters' branches)."""
+    from dg_sct_tpu_torch.models import pretrain
+
+    params, state, buffers = pretrain.init_pretrain_model(
+        cfg, names, clap_text_features=clap_text_features, seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    for k in pretrain.ADKEYS:
+        for ap in params["adapters"][k]:
+            for g in ("gate", "gate_av"):
+                ap[g] = torch.empty_like(ap[g]).uniform_(0.2, 0.6, generator=gen)
+    return params, state, buffers
+
+
+def pretrain_inputs(cfg, batch, seed, device):
+    """A seeded float32 batch on `device`: waves (B, T, clip_samples) in
+    [-1, 1], frames (B, T, 224, 224, 3) in [0, 1) and one-hot clip labels."""
+    rs = np.random.RandomState(seed)
+    T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.clip.image_size
+    n = cfg.num_classes
+    arrays = {"wave": np.clip(0.3 * rs.randn(batch, T, L), -1, 1).astype(np.float32),
+              "image": rs.rand(batch, T, S, S, 3).astype(np.float32),
+              "label": np.eye(n, dtype=np.float32)[rs.randint(n, size=batch)]}
+    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
+def outer_group(groups):
+    """A profile's host-op groups: the outermost of the ranges `groups`
+    around the op (the text tower's blocks run the same halves as the ViT's)."""
+    def group(e):
+        found, op = None, e
+        while op is not None:
+            if op.name in groups:
+                found = op.name
+            op = op.cpu_parent
+        return found
+    return group
+
+
+def pretrain_ranges():
+    """(module, name, label) of the profile's groups."""
+    from dg_sct_tpu_torch.models import adapter, clip, htsat
+
+    text, vit, aud, ad = PRETRAIN_GROUPS
+    return ([(clip, "encode_text_embeddings", text)]
+            + [(clip, n, vit) for n in ("visual_embed", "attention_part", "mlp_part",
+                                         "visual_project")]
+            + [(htsat, n, aud) for n in ("frontend", "block", "patch_merging", "tscam_latent")]
+            + [(adapter, "adapter", ad)])
+
+
+def pretrain_forward_timed(fwd, params, state, what, want):
+    """One warm-up forward, then one timed with its launches checked against
+    `want` -> (outputs, seconds, peak GiB)."""
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    fwd(params, state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fwd(params, state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {want}")
+    return out, dt, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_pretrain(device="cuda"):
+    """Phase 14: PretrainModelConfig() at full width in float32 (141 classes,
+    seeded weights, the CLAP text features from a seeded RoBERTa-base): the
+    zero-shot forward at B=2 on the adapters as loaded (0/12/0/0) and folded
+    (0/12/48/0), each K2 and K3 call against its plain version, the folded
+    forward with kernels against the plain one (PRETRAIN_F32_TOL, beside the
+    nudge and faults planted in front of K3), a profiled forward."""
+    from dg_sct_tpu_torch.configs import PretrainModelConfig
+    from dg_sct_tpu_torch.models import pretrain
+    from dg_sct_tpu_torch.models.clap_text import compute_clap_text_features
+    from dg_sct_tpu_torch.models.interleave import fold_adapters_eval
+    from dg_sct_tpu_torch.train.pretrain_train import partition_pretrain_params
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = PretrainModelConfig()
+    names = pretrain_names(cfg.num_classes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = compute_clap_text_features(names, device=device)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if feats.shape != (cfg.num_classes, cfg.clip.embed_dim) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"pretrain clap: features {tuple(feats.shape)} or non-finite")
+    print(f"pretrain clap: compute_clap_text_features over {len(names)} prompts (\"The sounds "
+          f"of <name>\", byte-level ids, 77 tokens) through a seeded RoBERTa-base and the "
+          f"768 -> 512 -> 512 projection on the card in {dt:.3f} s (initialiser included): "
+          f"{tuple(feats.shape)} float32", flush=True)
+    params, state, buffers = seeded_pretrain_model(cfg, names, device, clap_text_features=feats)
+    tr, fr = partition_pretrain_params(params)
+    count = lambda tree: sum(t.numel() for _, t in tree_paths(tree))
+    print(f"pretrain: PretrainModelConfig() in float32, TF32 off: {count(params) / 1e6:.2f} M "
+          f"parameters, {count(fr) / 1e6:.2f} M frozen (visual {count(fr['visual']) / 1e6:.2f}, "
+          f"text {count(fr['text']) / 1e6:.2f}, htsat {count(fr['htsat']) / 1e6:.2f}), "
+          f"{count(tr) / 1e6:.2f} M trainable (adapters {count(tr['adapters']) / 1e6:.2f}); "
+          f"{len(names)} classes, seed 0, adapter gates from seed 1", flush=True)
+    del tr, fr
+    batch = pretrain_inputs(cfg, BATCH, seed=0, device=device)
+
+    def fwd(p, s, wave=batch["wave"], image=batch["image"], **kw):
+        return pretrain.forward(p, s, buffers, wave, image, cfg, device=device, **kw)
+
+    B, T = BATCH, cfg.num_frames
+    with torch.inference_mode():
+        out, dt, peak = pretrain_forward_timed(fwd, params, state, "pretrain unfolded",
+                                               PRETRAIN_PER_FORWARD)
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        if (shapes["event_scores"] != (B * T, cfg.num_classes)
+                or shapes["logits_audio_image"] != (B, B)
+                or not all(bool(torch.isfinite(v).all()) for v in out.values())):
+            raise AssertionError(f"pretrain: outputs {shapes} or non-finite")
+        print(f"pretrain serve: B={B} ({B * T} frames of {cfg.clip.image_size} and {B * T} audio "
+              f"clips of {cfg.htsat.frontend.clip_samples} samples), adapters as loaded: "
+              f"{dt * 1e3:.3f} ms, peak memory {peak:.3f} GiB, launches {PRETRAIN_PER_FORWARD}; "
+              f"outputs {shapes}", flush=True)
+        fp, fs = fold_adapters_eval(params, state, cfg)
+        del params, state
+        folded = [ap for k in fp["adapters"] for ap in fp["adapters"][k]]
+        eligible = sum(not {"bn1", "bn2", "gate"} & set(ap) for ap in folded)
+        if eligible != len(folded):
+            raise AssertionError(f"pretrain fold: {eligible} of {len(folded)} adapters "
+                                 f"K3-eligible")
+        got, dt, peak = pretrain_forward_timed(fwd, fp, fs, "pretrain folded",
+                                               PRETRAIN_FOLDED_PER_FORWARD)
+        print(f"pretrain serve folded: {eligible} of {len(folded)} adapters folded (BN and gate into the "
+              f"bottleneck and ln_post): {dt * 1e3:.3f} ms, peak memory {peak:.3f} GiB, launches "
+              f"{PRETRAIN_FOLDED_PER_FORWARD}; event_scores against the unfolded forward: max abs "
+              f"diff {(got['event_scores'] - out['event_scores']).abs().max().item():.3e}",
+              flush=True)
+
+        # float32: each K2 and K3 call, then the folded forward, against plain
+        bad = []
+        calls = {"block_attention": [], "adapter_bottleneck": []}
+        with contextlib.ExitStack() as stack:
+            for kernel, c in calls.items():
+                stack.enter_context(side_by_side(kernel, c))
+            got = fwd(fp, fs)
+        for kernel, c in calls.items():
+            report_calls("pretrain f32", kernel, c, bad)
+        ref = fwd(fp, fs, kernels=False)
+        scale = {k: max(ref[k].abs().max().item(), 1e-6) for k in PRETRAIN_OUTPUTS}
+        flat = lambda o: np.concatenate([(o[k].float() / scale[k]).cpu().numpy().ravel()
+                                         for k in PRETRAIN_OUTPUTS])
+        rs = np.random.RandomState(21)
+        nudge = lambda t: t * (1.0 + INT8_NUDGE * torch.as_tensor(
+            rs.randn(*t.shape), device=device, dtype=t.dtype))
+        near = fwd(fp, fs, wave=nudge(batch["wave"]), image=nudge(batch["image"]), kernels=False)
+        f_got, f_ref = flat(got), flat(ref)
+        err, sens = spread_err(f_got, f_ref), spread_err(flat(near), f_ref)
+        ev_g, ev_r = got["event_scores"], ref["event_scores"]
+        print(f"pretrain f32: kernels vs plain, the largest |delta| of "
+              f"{', '.join(PRETRAIN_OUTPUTS)} over each one's largest value {err:.3e} (per output "
+              + ", ".join(f"{k} {(got[k] - ref[k]).abs().max().item() / scale[k]:.3e}"
+                          for k in PRETRAIN_OUTPUTS)
+              + f"; bound {PRETRAIN_F32_TOL:g}); the plain path moves {sens:.3e} with frames and "
+              f"wave changed by {INT8_NUDGE:g} (relative); event_scores max abs diff "
+              f"{(ev_g - ev_r).abs().max().item():.3e} of max |value| "
+              f"{ev_r.abs().max().item():.3e}, argmax agreeing in "
+              f"{int((ev_g.argmax(-1) == ev_r.argmax(-1)).sum())} of {B * T} segments", flush=True)
+        if not np.isfinite(f_got).all() or err > PRETRAIN_F32_TOL:
+            bad.append(f"pretrain f32: kernels and plain path disagree ({err:.3e})")
+        read_planted("adapter_bottleneck", lambda: flat(fwd(fp, fs)), f_ref, PRETRAIN_F32_TOL,
+                     "pretrain f32", bad, faults=K3_PLANTED)
+        del got, ref, near
+
+        # one profiled folded forward, its groups by the host op's range
+        fwd(fp, fs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            for module, name, label in pretrain_ranges():
+                stack.enter_context(annotate(module, name, label))
+            profile_run(lambda: fwd(fp, fs), f"one folded pretrain forward of {B} clips, float32",
+                        "pretrain profile", op_group=outer_group(PRETRAIN_GROUPS))
+        print(f"pretrain profile: peak memory of the profiled forward "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del fp, fs, buffers, batch, feats
+    torch.cuda.empty_cache()
+    print(f"pretrain: phase 14 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+# ---------------------------------------------------------------------------
+# phase 15: pretrain and few-shot training at full width, and the entry points
+# ---------------------------------------------------------------------------
+
+PRETRAIN_TRAIN_BATCH = 2   # pretrain_main --mode smoke's B: 20 frames and 20 audio clips
+PRETRAIN_RECIPE_BATCH = 8  # pretrain_main's --batch-size, one mini-step
+PRETRAIN_LR = 1e-4         # pretrain_main's and few_shot_main's --lr
+PRETRAIN_STEPS = 3
+PRETRAIN_FROZEN = ("visual", "text", "htsat", "clap_text_features")
+# the trainable leaves the forward never reads: CoCoOp's meta_net (zero
+# gradient, so Adam leaves them)
+PRETRAIN_UNREAD = ("prompt_learner", "meta_net")
+PRETRAIN_MAIN_VIDEOS = 4   # each entry point's tree: one mini-step of B=2 a split
+
+
+def write_vggsound_tree(root, videos, cats, cfg, seed=0):
+    """A VGGSound-AVEL tree: T JPEG frames (256 x 256) and an int16 wave of T x
+    clip_samples a video, the categories file and the labels csv (even
+    videos train, odd ones test; 6-digit numeric ids)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    T, L = cfg.num_frames, cfg.htsat.frontend.clip_samples
+    (root / "audio").mkdir(parents=True)
+    rows = ["video_id,split,category,label"]
+    for v in range(videos):
+        vid = f"{v + 1:06d}"
+        (root / "frames" / vid).mkdir(parents=True)
+        for t in range(T):
+            Image.fromarray(rs.randint(0, 256, (256, 256, 3), dtype=np.uint8)).save(
+                root / "frames" / vid / f"{t:08d}.jpg", quality=90)
+        np.save(root / "audio" / f"{vid}.npy",
+                (np.clip(0.3 * rs.randn(T * L), -1, 1) * 32767).astype(np.int16))
+        flags = [1] * T if v % 3 else [1] * (T // 2) + [0] * (T - T // 2)
+        rows.append(f'{vid},{"train" if v % 2 == 0 else "test"},{cats[v % len(cats)]},"{flags}"')
+    (root / "VggsoundAVEL40kCategories.txt").write_text("\n".join(cats) + "\n")
+    (root / "vggsound-avel40k_labels.csv").write_text("\n".join(rows) + "\n")
+    return root
+
+
+def pretrain_mains_once(cfg, tmp):
+    """pretrain_main in train mode (1 epoch over a VGGSound-AVEL tree), then
+    zero_shot_main in eval mode on AVE and LLP trees and few_shot_main in
+    train mode on the AVE tree, each from the saved `pretrain_best.npz`, all
+    on the card by default -> (pretrain path, {run: accuracy}, {run: s})."""
+    import dataclasses
+    import io
+    import types
+
+    from dg_sct_tpu_torch.train import few_shot_main, pretrain_main, zero_shot_main
+
+    tmp = Path(tmp)
+    vgg = write_vggsound_tree(tmp / "vgg", PRETRAIN_MAIN_VIDEOS,
+                              ["dog barking", "playing violin", "people whistling"], cfg, seed=70)
+    ave = write_ave_tree(tmp / "ave", PRETRAIN_MAIN_VIDEOS,
+                         dataclasses.replace(cfg, num_classes=4), seed=71)
+    (ave / "trainSet.txt").write_text((ave / "testSet.txt").read_text())
+    llp = write_llp_tree(tmp / "llp", [f"llp{i:08d}" for i in range(PRETRAIN_MAIN_VIDEOS)],
+                         types.SimpleNamespace(num_frames=cfg.num_frames,
+                                               swin=types.SimpleNamespace(img_size=224)), seed=72)
+    media = lambda root: ["--frames", str(root / "frames"), "--audio", str(root / "audio")]
+    log, accs, secs = io.StringIO(), {}, {}
+
+    def run(name, main, argv):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            out = main(argv)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    best = run("pretrain_main train", pretrain_main.main,
+               ["--mode", "train", "--root", str(vgg), "--epochs", "1", "--batch-size", "2",
+                "--save-dir", str(tmp / "ckpt")] + media(vgg))
+    if not best or not Path(best).exists():
+        raise AssertionError(f"pretrain main: no pretrain_best.npz: {log.getvalue()[-500:]}")
+    common = ["--ckpt", best, "--batch-size", "2"]
+    accs["zero-shot AVE events"] = run("zero_shot_main AVE", zero_shot_main.main,
+                                       ["--mode", "eval", "--dataset", "AVE", "--meta", str(ave)]
+                                       + media(ave) + common)
+    accs["zero-shot LLP cls"] = run("zero_shot_main LLP", zero_shot_main.main,
+                                    ["--mode", "eval", "--dataset", "LLP", "--label-test",
+                                     str(llp / "AVVP_test_pd.csv")] + media(llp) + common)
+    accs["few-shot AVE cls"] = run("few_shot_main AVE", few_shot_main.main,
+                                   ["--mode", "train", "--dataset", "AVE", "--meta", str(ave),
+                                    "--k-shot", "1", "--epochs", "1", "--save-dir",
+                                    str(tmp / "few")] + media(ave) + common)
+    text = log.getvalue()
+    if (not (tmp / "few" / "few_shot_AVE_cls_best.npz").exists()
+            or not all(0.0 <= a <= 100.0 for a in accs.values())
+            or "weak accuracy" not in text or "ckpt: skipped" not in text):
+        raise AssertionError(f"pretrain mains: {accs}, {text[-800:]}")
+    return Path(best), accs, secs
+
+
+def run_pretrain_training(cfg=None, device="cuda"):
+    """Phase 15: `cfg` (None: the full-width PretrainModelConfig()) trained in
+    float32 at pretrain_main's step (plain Adam at 1e-4, no remat):
+    PRETRAIN_STEPS mini-steps of B=2, the checks of each; a profiled one;
+    one at the recipe's B=8; one few-shot mini-step for each loss (the
+    global-norm clip, then Adam); then the three entry points once each."""
+    import dataclasses
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import PretrainModelConfig, PromptConfig
+    from dg_sct_tpu_torch.train import few_shot_main
+    from dg_sct_tpu_torch.train import pretrain_train as PT
+    from dg_sct_tpu_torch.train.optim import ClippedAdam
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = cfg or PretrainModelConfig()
+    name = "PretrainModelConfig()" if cfg == PretrainModelConfig() else cfg
+    names = pretrain_names(cfg.num_classes)
+    params, state, buffers = seeded_pretrain_model(cfg, names, device)
+    tr, fr = PT.partition_pretrain_params(params)
+    p0 = {p: t.cpu() for p, t in tree_paths(params)}
+    s0 = {p: t.cpu() for p, t in tree_paths(state)}
+    del params
+    opt = PT.plain_adam(PRETRAIN_LR)
+    step = PT.make_pretrain_step(cfg, buffers, opt, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    batches = [pretrain_inputs(cfg, PRETRAIN_TRAIN_BATCH, 60 + i, device)
+               for i in range(PRETRAIN_STEPS)]
+    print(f"pretrain train: {name} in float32, TF32 off, no remat; seed 0, adapter gates from "
+          f"seed 1; B={PRETRAIN_TRAIN_BATCH} ({PRETRAIN_TRAIN_BATCH * cfg.num_frames} frames and "
+          f"audio clips), plain Adam at {PRETRAIN_LR:g}, SpecAugment from a generator; "
+          f"{sum(t.numel() for _, t in tree_paths(tr)) / 1e6:.2f} M trainable parameters; the "
+          f"text tower over {cfg.num_classes} x {cfg.clip.context_length} tokens in the graph",
+          flush=True)
+    tr, state, opt_state, times, peak = train_steps(step, tr, fr, state, opt.init(tr), batches,
+                                                    gen, "pretrain train", NO_LAUNCHES)
+    same = moved_leaves(tr, fr, p0, "pretrain train", frozen=PRETRAIN_FROZEN)
+    trained = [p for p in same if p[0] not in PRETRAIN_FROZEN]
+    unread = [p for p in trained if p[:2] == PRETRAIN_UNREAD]
+    unmoved = [p for p in trained if same[p] and p[:2] != PRETRAIN_UNREAD]
+    still_unread = [p for p in unread if not same[p]]
+    bn = [(p, t) for p, t in tree_paths(state) if p[-1] in ("mean", "var")]
+    still = [p for p, t in bn if torch.equal(t.cpu(), s0[p])]
+    counts_bn = {int(t) for p, t in tree_paths(state) if p[-1] == "count"}
+    if unmoved or still_unread or still or counts_bn != {PRETRAIN_STEPS}:
+        raise AssertionError(f"pretrain train: unmoved trainable leaves {unmoved[:5]}, moved "
+                             f"unread ones {still_unread}, BN state unmoved {still[:3]} or counts "
+                             f"{counts_bn}")
+    print(f"pretrain train: {PRETRAIN_STEPS} mini-steps: " + ", ".join(f"{t:.3f}" for t in times)
+          + f" s; peak memory {peak:.3f} GiB; {len(trained) - len(unread)} of the {len(trained)} "
+          f"trainable leaves changed, the {len(unread)} of prompt_learner.meta_net unchanged "
+          f"(the forward never reads them: zero gradient); {len(same) - len(trained)} frozen "
+          f"leaves bit-identical; {len(bn)} BN stats (bn0 and the adapters' bn1 and bn2) moved, "
+          f"count {PRETRAIN_STEPS}; card {torch.cuda.get_device_name(0)}", flush=True)
+    del p0, s0
+
+    groups = profile_run(lambda: step(tr, fr, state, opt_state, batches[0], gen),
+                         f"one pretrain mini-step of {PRETRAIN_TRAIN_BATCH} clips",
+                         "pretrain train profile", host_ops=False)
+    unprofiled = float(np.median(times[1:]))
+    print(f"pretrain train profile: {sum(groups.values()):.3f} ms of device time against the "
+          f"unprofiled mini-steps' median {unprofiled:.3f} s: "
+          f"{100.0 * (1.0 - sum(groups.values()) / 1e3 / unprofiled):.1f}% idle", flush=True)
+
+    del batches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    big = pretrain_inputs(cfg, PRETRAIN_RECIPE_BATCH, 66, device)
+    (_, _, _, m), dt = timed_step(step, (tr, fr, state, opt_state, big, gen))
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError("pretrain train B=8: the loss is not finite")
+    print(f"pretrain train B={PRETRAIN_RECIPE_BATCH}: one mini-step at the recipe's batch "
+          f"({PRETRAIN_RECIPE_BATCH * cfg.num_frames} frames and audio clips) in {dt:.3f} s, "
+          f"loss {float(m['loss']):.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del big, step, opt_state, m
+
+    sched = {"train": lambda count: PRETRAIN_LR}
+    for task, loss_fn in (("cls", few_shot_main.few_shot_loss),
+                          ("events", few_shot_main.few_shot_event_loss)):
+        if task == "events":  # the background prompt: another class count
+            del tr, fr, state, buffers
+            torch.cuda.empty_cache()
+            ecfg = dataclasses.replace(cfg, prompt=PromptConfig(weak=False))
+            params, state, buffers = seeded_pretrain_model(ecfg, names, device)
+            tr, fr = PT.partition_pretrain_params(params)
+            del params
+        fopt = ClippedAdam(sched, 1.0)
+        fstep = few_shot_main.make_few_shot_step(ecfg if task == "events" else cfg, buffers, fopt,
+                                                 loss_fn, device=device)
+        b = pretrain_inputs(cfg, PRETRAIN_TRAIN_BATCH, 80, device)
+        if task == "events":
+            rs = np.random.RandomState(81)
+            n = cfg.num_classes + 1
+            b["label"] = torch.as_tensor(np.eye(n, dtype=np.float32)[rs.randint(
+                n, size=(PRETRAIN_TRAIN_BATCH, cfg.num_frames))], device=device)
+        tr, state, _, _, _ = train_steps(fstep, tr, fr, state, fopt.init(tr), [b], gen,
+                                         f"few-shot train {task}", NO_LAUNCHES)
+    del tr, fr, state, buffers, fstep, fopt, b
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrain_main_") as tmp:
+        best, accs, secs = pretrain_mains_once(cfg, tmp)
+        size = best.stat().st_size
+    print(f"pretrain main: pretrain_main.main(--mode train --epochs 1) over "
+          f"{PRETRAIN_MAIN_VIDEOS} VGGSound-AVEL videos on disk, on the card by default: "
+          f"pretrain_best.npz of {size / 1e9:.3f} GB; from it zero_shot_main (--mode eval) on AVE "
+          f"and LLP trees and few_shot_main (--mode train --k-shot 1 --epochs 1) on AVE: "
+          + ", ".join(f"{k} {v:.1f} %" for k, v in accs.items()) + "; seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    torch.cuda.empty_cache()
+    print(f"pretrain train: phase 15 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", action="append",
                     choices=sorted(SOURCES) + ["avs", "avs_train", "avvp", "avvp_train", "avqa",
-                                               "avqa_train"],
+                                               "avqa_train", "pretrain", "pretrain_train"],
                     help="check and time only this kernel (repeatable), or run only phase "
-                         "8 (avs), 9 (avs_train), 10 (avvp), 11 (avvp_train), 12 (avqa) or 13 "
-                         "(avqa_train); skips the other phases")
+                         "8 (avs), 9 (avs_train), 10 (avvp), 11 (avvp_train), 12 (avqa), 13 "
+                         "(avqa_train), 14 (pretrain) or 15 (pretrain_train); skips the other "
+                         "phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3503,6 +4020,10 @@ def main() -> int:
             run_avqa()
         if "avqa_train" in args.only:
             run_avqa_training()
+        if "pretrain" in args.only:
+            run_pretrain()
+        if "pretrain_train" in args.only:
+            run_pretrain_training()
         print(json.dumps(kernels_line(rows, {name: None for name in SOURCES})))
         print(card)
         print(f"partial run ({', '.join(args.only)}): no ok line", flush=True)
@@ -3522,6 +4043,8 @@ def main() -> int:
     run_avvp_training()
     run_avqa()
     run_avqa_training()
+    run_pretrain()
+    run_pretrain_training()
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
-"""Immutable configuration dataclasses of the AVE, AVS, AVVP and AVQA models
-and of training.
+"""Immutable configuration dataclasses of the AVE, AVS, AVVP and AVQA models,
+of the CLIP x CLAP pretrain model and of training.
 
-A copy of the AVE, AVS, AVVP and AVQA parts of `dg_sct_tpu/configs.py` with torch dtypes: the
+A copy of the AVE, AVS, AVVP, AVQA and pretrain parts of `dg_sct_tpu/configs.py` with torch dtypes: the
 field names, defaults and the two static layout helpers are the same, so a
 configuration means the same model in both packages.
 """
@@ -229,6 +229,51 @@ class AVQAModelConfig:
     qst_vocab_size: int = 93
     ans_vocab_size: int = 42
     max_qst_len: int = 14
+    compute_dtype: Any = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """OpenAI CLIP ViT-B/32: visual tower at 224, patch 32, width 768, 12
+    blocks of 12 heads; text tower of 12 blocks at width 512, 8 heads, 77
+    tokens over a 49408-token vocabulary; both project to 512."""
+    image_size: int = 224
+    vision_patch: int = 32
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12
+    embed_dim: int = 512
+    context_length: int = 77
+    vocab_size: int = 49408
+    text_width: int = 512
+    text_layers: int = 12
+    text_heads: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class PromptConfig:
+    """CoOp prompt learning: `n_ctx` context vectors initialised from
+    `ctx_init`, the class token at the "end", "middle" or "front";
+    `weak=False` appends a "background" class."""
+    n_ctx: int = 4
+    ctx_init: str = "a photo of a"
+    class_token_position: str = "end"
+    weak: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainModelConfig:
+    """The pretrain suite's model: CLIP ViT-B/32 and the HTS-AT tower in
+    lockstep, 12 ViT blocks paired 1:1 with HTS-AT's 12, an adapter pair
+    around each block half (48 adapters), prompt-learned CLIP text features
+    and static CLAP text features over `num_classes` classes (VGGSound-AVEL's
+    141)."""
+    clip: CLIPConfig = dataclasses.field(default_factory=CLIPConfig)
+    htsat: HTSATConfig = dataclasses.field(default_factory=HTSATConfig)
+    adapter: AdapterConfig = dataclasses.field(default_factory=AdapterConfig)
+    prompt: PromptConfig = dataclasses.field(default_factory=PromptConfig)
+    num_frames: int = 10
+    num_classes: int = 141
     compute_dtype: Any = torch.float32
 
 

@@ -3,9 +3,14 @@
 The frontend (STFT, log-mel, bn0, [training: SpecAugment, mixup], mel
 image, patch embed), pre-norm V1 Swin blocks with a relative-position-bias
 table, and V1 patch merging (norm, then reduction), driven block by block
-by the interleave, or alone without adapters (`forward_features`).
+by the interleave, or alone without adapters (`forward_features`), and the
+token-semantic head (`tscam_head`), of which the pretrain model reads only
+the latent (`tscam_latent`).
 """
 from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
 
 from ..configs import HTSATConfig
 from ..ops import dsp
@@ -145,3 +150,39 @@ def forward_features(params, state, wave, cfg: HTSATConfig, *, train=False, gen=
     x, new_state = frontend(params, state, wave, cfg, train=train, gen=gen,
                             mixup_lambda=mixup_lambda)
     return run_tower(params, x, cfg, kernels=kernels, gelu=gelu), new_state
+
+
+def _tscam_strips(params, x, cfg: HTSATConfig):
+    """The last stage's tokens (N, L, C) after `norm`, regrouped into the
+    head's freq strips: (N, c_freq_bins, (SF / c_freq_bins) * ST, C)."""
+    N, L, C = x.shape
+    x = layer_norm(params["norm"], x)
+    SF = ST = cfg.stage_resolution(cfg.num_layers - 1)[0]
+    cfb = tscam_freq_bins(cfg)
+    fr = SF // cfb
+    return x.reshape(N, fr, cfb, ST, C).permute(0, 2, 1, 3, 4).reshape(N, cfb, fr * ST, C)
+
+
+def tscam_latent(params, x, cfg: HTSATConfig):
+    """`tscam_head(params, x, cfg)["latent_output"]` alone, bit for bit: the
+    mean token after `norm`, without the tscam conv and the sigmoids the
+    pretrain forward never reads (XLA drops them there; eager PyTorch would
+    run them)."""
+    g = _tscam_strips(params, x, cfg)
+    return g.reshape(g.shape[0], -1, g.shape[-1]).mean(1)
+
+
+def tscam_head(params, x, cfg: HTSATConfig):
+    """Token-semantic head: the last stage's tokens (N, L, C) -> clipwise
+    probabilities (N, classes), framewise ones upsampled by 8 * the time
+    patch stride (N, T' * 8 * stride, classes) and the latent (N, C). The
+    tscam conv spans the freq strips and 3 time steps, padded by one."""
+    g = _tscam_strips(params, x, cfg)
+    N, C = g.shape[0], g.shape[-1]
+    latent = g.reshape(N, -1, C).mean(1)
+    w = params["tscam_conv"]["kernel"].permute(3, 2, 0, 1)       # (classes, C, cfb, 3)
+    out = F.conv2d(g.permute(0, 3, 1, 2), w, params["tscam_conv"]["bias"], padding=(0, 1))
+    out = out[:, :, 0].transpose(1, 2)                            # (N, T', classes)
+    framewise = torch.repeat_interleave(torch.sigmoid(out), 8 * cfg.patch_stride[1], dim=1)
+    return {"clipwise_output": torch.sigmoid(out.mean(1)), "framewise_output": framewise,
+            "latent_output": latent}

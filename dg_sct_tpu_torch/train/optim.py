@@ -97,6 +97,30 @@ class AccumulatedAdam:
             "acc": tree_map(torch.zeros_like, state["acc"])}
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """`optax.clip_by_global_norm`: where the global norm g of `grads` (a
+    list of tensors) is at least `max_norm`, each gradient becomes t / g *
+    max_norm; below it they stay as they are. No epsilon (unlike
+    `torch.nn.utils.clip_grad_norm_`), and no host sync."""
+    grads = list(grads)
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm) for g in grads]
+
+
+class ClippedAdam(AccumulatedAdam):
+    """`optax.chain(optax.clip_by_global_norm(max_norm), optax.adam(lr))`:
+    each mini-step's gradients clipped by their global norm, then Adam (one
+    mini-step an update)."""
+
+    def __init__(self, schedules: dict, max_norm: float):
+        super().__init__(schedules, every_k=1)
+        self.max_norm = max_norm
+
+    def update(self, grads, state, params):
+        return super().update(clip_by_global_norm(grads, self.max_norm), state, params)
+
+
 def count_params(params):
     """(total, trainable, frozen) parameter counts, the accounting printed at
     main_trans.py:271-273."""

@@ -117,3 +117,28 @@ def restore_structure(template, loaded):
             return torch.as_tensor(np.array(val), device=ref.device).to(ref.dtype)
         return type(ref)(np.asarray(val).item()) if isinstance(ref, (int, float)) else val
     return tree_map(like, template, tree_unflatten(template, tree_leaves(loaded)))
+
+
+def restore_matching(template, loaded):
+    """Path-aware partial restore: each leaf of `template` takes the leaf of
+    `loaded` at the same path ("a/b/0/c") when the shapes agree, as a tensor
+    on the template leaf's device and type, and keeps its own value
+    otherwise (as the reference skips a prompt learner's buffers when the
+    class list changes). -> (tree on `template`'s structure, the paths of
+    `loaded` that were not taken)."""
+    flat = _flatten(loaded)
+    used = set()
+
+    def take(node, prefix):
+        if isinstance(node, dict):
+            return {k: take(v, f"{prefix}{k}/") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [take(v, f"{prefix}{i}/") for i, v in enumerate(node)]
+        key = prefix[:-1]
+        val = flat.get(key)
+        if val is None or tuple(np.shape(val)) != tuple(node.shape):
+            return node
+        used.add(key)
+        return torch.as_tensor(np.array(val), device=node.device).to(node.dtype)
+
+    return take(template, ""), sorted(set(flat) - used)

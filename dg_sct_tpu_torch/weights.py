@@ -1,5 +1,5 @@
-"""Carries the JAX package's AVE, AVS, AVVP or AVQA (params, state) across to
-the port.
+"""Carries the JAX package's AVE, AVS, AVVP, AVQA or pretrain (params, state)
+across to the port.
 
 The port keeps the JAX tree: the same nested dict keys and list lengths, and
 the same leaf shapes (linear kernels (in, out), grouped kernels
@@ -14,13 +14,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .configs import AVEModelConfig, AVQAModelConfig, AVSModelConfig, AVVPModelConfig
+from .configs import (AVEModelConfig, AVQAModelConfig, AVSModelConfig, AVVPModelConfig,
+                      PretrainModelConfig)
 from .device import resolve_device
 from .models.avqa import init_avqa_model
 from .models.avqa_grounding import init_grounding_model
 from .models.ave import init_ave_model
 from .models.avs import init_avs_model
 from .models.avvp import init_avvp_model
+from .models.pretrain import init_pretrain_model, prompt_buffers
 from .utils.tree import tree_leaves, tree_map
 
 
@@ -50,8 +52,8 @@ _INITS = ((AVSModelConfig, init_avs_model), (AVVPModelConfig, init_avvp_model),
 
 
 def from_jax(params_np, state_np,
-             cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig | AVQAModelConfig, *,
-             device=None, grounding=False):
+             cfg: AVEModelConfig | AVSModelConfig | AVVPModelConfig | AVQAModelConfig
+             | PretrainModelConfig, *, device=None, grounding=False, classnames=None):
     """(params, state) of `dg_sct_tpu.models.ave.init_ave_model` (or, for an
     AVSModelConfig, `models.avs.init_avs_model`, for an AVVPModelConfig
     `models.avvp.init_avvp_model`, for an AVQAModelConfig
@@ -59,8 +61,20 @@ def from_jax(params_np, state_np,
     `models.avqa_grounding.init_grounding_model`, which shares the AVQA
     configuration), as nested dicts and lists of numpy arrays -> the port's
     float32 (params, state) on `device` (None: the card). Every leaf must be
-    consumed and every shape must match."""
+    consumed and every shape must match.
+
+    A PretrainModelConfig (`models.pretrain.init_pretrain_model`) needs the
+    model's `classnames` and returns (params, state, prompt buffers): the
+    buffers are no leaves (numpy in the JAX package), so they are rebuilt
+    from the carried `text.token_embedding`."""
     device = resolve_device(device)
+    if isinstance(cfg, PretrainModelConfig):
+        if classnames is None:
+            raise ValueError("a PretrainModelConfig takes the model's classnames")
+        ref_p, ref_s, _ = init_pretrain_model(cfg, classnames, device="meta")
+        params = _convert(ref_p, params_np, "params", device)
+        return (params, _convert(ref_s, state_np, "state", device),
+                prompt_buffers(params, classnames, cfg))
     if grounding and not isinstance(cfg, AVQAModelConfig):
         raise ValueError("grounding=True takes an AVQAModelConfig")
     init = init_grounding_model if grounding else next(
