@@ -229,7 +229,35 @@ Phases, each fatal on failure:
      on-disk VGGSound-AVEL tree (it must save `pretrain_best.npz`), and from
      it `zero_shot_main` in eval mode on AVE and LLP trees and
      `few_shot_main` in train mode on the AVE tree, once each, on the card
-     by default: accuracies in [0, 100].
+     by default: accuracies in [0, 100];
+  16. extract video features into an LLP tree and serve it: 7 videos of 80
+     seeded JPEG frames at 224 and 7 10-s 44.1-kHz stereo int16 wavs, the
+     wavs through `preprocess.wav_to_wave_npy` (10 s at 32 kHz; with ffmpeg
+     on the path, `extract_frames` on an MPEG-4 file of one video's frames),
+     `feature_extract rgb` (ResNet-152 at 224, (80, 2048) a video) and
+     `feature_extract clip` (R(2+1)D-18 at 112, (10, 512) a video, into
+     st/), float32, TF32 off, seeded weights: frames/s end to end and of the
+     backbone alone, peak memory; each backbone on the card against the CPU
+     on one video's first 16 frames or 4 clips (FEATURES_TOL, beside the
+     card's move under a 1e-6 nudge); then the tree through LLPDataset and a
+     bf16 AVVPInferenceEngine on the census weights (B=2, chunk 2; launches
+     4 x 2/34/48/0, probabilities in range);
+  17. the standalone modules at full width: the AudioSet HTS-AT classifier
+     (a state dict synthesized from census_htsat_audioset.json through
+     `convert_htsat` and `from_jax_tree`, 527 classes) at B=2 on 10-s waves
+     (launches 0/12/0/0) and 20-s waves (two sliding crops, 0/24/0/0) in bf16
+     and float32, the train branch once from a generator (0/0/0/0), and in
+     float32 each K2 call against its plain version and the outputs against
+     the plain forward within CLASSIFIER_F32_TOL beside the nudge and the
+     faults PLANTED in front of K2; PVT-v2-b5 from census_avs_pvt_v2_b5.json
+     on 2 x 5 frames of 224 (maps at 56/28/14/7), timed and against the CPU
+     on one image; VGGish on 10 s of 16-kHz audio (10 examples, 128-d, PCA
+     codes), against the CPU; the dormant set once each at its reference
+     widths (the AST, RN50 ModifiedResNet, AVENet, the five legacy AVE
+     modules, the eight attention variants, PHM): shapes, finite, a time
+     each; `profiling.flops_estimate` of the full-width AVE forward and a
+     `profiling.trace` of one classifier forward. The bounds of phases 16
+     and 17 are checked once every reading of the phase is printed.
 It then prints the kernels line (launches from phase 4, K4's from phase 7),
 the card line and, last, the ok line.
 
@@ -242,16 +270,21 @@ the card line and, last, the ok line.
     python3 chip_smoke.py --only avqa_train           # phases 1, 2, AVQA's K3 and 13
     python3 chip_smoke.py --only pretrain             # phases 1, 2, the pretrain K3 and 14
     python3 chip_smoke.py --only pretrain_train       # phases 1, 2, the pretrain K3 and 15
+    python3 chip_smoke.py --only features             # phases 1, 2 and 16
+    python3 chip_smoke.py --only standalone           # phases 1, 2 and 17
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 to 15 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
-`avvp`, `avvp_train`, `avqa`, `avqa_train`, `pretrain` and `pretrain_train`
-run phase 8, 9, 10, 11, 12, 13, 14 or 15 alone. Such a run prints no ok line. Phase 10's K1-K3 shapes are phase
+phases 4 to 17 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
+`avvp`, `avvp_train`, `avqa`, `avqa_train`, `pretrain`, `pretrain_train`,
+`features` and `standalone` run phase 8, 9, 10, 11, 12, 13, 14, 15, 16 or 17
+alone. Such a run prints no ok line. Phase 10's K1-K3 shapes are phase
 4's (20 frames and 20 audio clips a forward; a 1 s wave is resized to the
 same log-mel image), which phase 3 checks and times; phase 12's K1 and K2
 shapes are phase 4's too, its K3 shapes phase 3's AVQA rows. Phase 14's K2
 shapes and its audio adapters' K3 shapes are phase 4's HTS-AT ones; its 24
-visual adapters' K3 shape is phase 3's pretrain row.
+visual adapters' K3 shape is phase 3's pretrain row. Phase 16's K1-K3
+shapes are phase 10's; phase 17's K2 calls (2 clips a tower pass) are
+checked one by one in float32 where the classifier makes them.
 """
 from __future__ import annotations
 
@@ -2569,9 +2602,7 @@ def write_llp_tree(root, videos, cfg, seed=0):
     T, S = cfg.num_frames, cfg.swin.img_size
     for d in ("frames", "audio", "st"):
         (root / d).mkdir(parents=True, exist_ok=True)
-    cats = ["Speech", "Dog", "Cello", "Singing", "Car"]
-    labels, events = ["filename\tevent_labels"], ["filename\tonset\toffset\tevent_labels"]
-    for i, vid in enumerate(videos):
+    for vid in videos:
         (root / "frames" / vid).mkdir()
         for t in range(T):
             Image.fromarray(rs.randint(0, 256, (S, S, 3), dtype=np.uint8)).save(
@@ -2579,6 +2610,14 @@ def write_llp_tree(root, videos, cfg, seed=0):
         np.save(root / "audio" / f"{vid}.npy",
                 np.clip(0.3 * rs.randn(T * AVVP_SEGMENT), -1, 1).astype(np.float32))
         np.save(root / "st" / f"{vid}.npy", rs.randn(T, 512).astype(np.float32))
+    return write_llp_csvs(root, videos)
+
+
+def write_llp_csvs(root, videos):
+    """LLP's label and annotation csvs: every split lists every video."""
+    cats = ["Speech", "Dog", "Cello", "Singing", "Car"]
+    labels, events = ["filename\tevent_labels"], ["filename\tonset\toffset\tevent_labels"]
+    for i, vid in enumerate(videos):
         labels.append(f"{vid}\t{cats[i % 5]},{cats[(i + 2) % 5]}")
         events.append(f"{vid}\t{i % 4}\t{i % 4 + 3}\t{cats[i % 5]}")
     for name in ("AVVP_train.csv", "AVVP_val_pd.csv", "AVVP_test_pd.csv"):
@@ -3970,15 +4009,576 @@ def run_pretrain_training(cfg=None, device="cuda"):
     print(f"pretrain train: phase 15 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: video features extracted on the card, served through AVVP
+# ---------------------------------------------------------------------------
+
+FEATURE_VIDEOS = 7
+FEATURE_FRAMES = 80        # 10 s at 8 fps: the feature scripts' n_frame_steps
+FEATURE_SIZE = 224         # the frames as written, the RGB script's size
+WAV_SR = 44100
+# card against the CPU on the same inputs and weights, max |delta| / max
+# |value| of the features: both float32 with TF32 off, apart by summation
+# order only; above the card's own move under a 1e-6 relative nudge of the
+# frames (printed beside)
+FEATURES_TOL = 1e-4
+CPU_FRAMES = 16            # the RGB check: one batch of one video
+CPU_CLIPS = 4              # the clip check: one video's first clips
+NUDGE = 1e-6
+
+
+def write_feature_media(root, videos, seed=0):
+    """Raw media of `videos`, seeded: FEATURE_FRAMES JPEGs at FEATURE_SIZE a
+    video (frames/<vid>/%08d.jpg, from 1) and a 10-s 44.1-kHz stereo int16
+    wav (wav/<vid>.wav)."""
+    from PIL import Image
+    from scipy.io import wavfile
+
+    rs = np.random.RandomState(seed)
+    (root / "wav").mkdir(parents=True)
+    for vid in videos:
+        d = root / "frames" / vid
+        d.mkdir(parents=True)
+        for t in range(FEATURE_FRAMES):
+            Image.fromarray(rs.randint(0, 256, (FEATURE_SIZE, FEATURE_SIZE, 3), dtype=np.uint8)
+                            ).save(d / f"{t + 1:08d}.jpg", quality=90)
+        wave = np.clip(0.3 * rs.randn(WAV_SR * 10, 2), -1, 1) * 32767
+        wavfile.write(root / "wav" / f"{vid}.wav", WAV_SR, wave.astype(np.int16))
+
+
+def ffmpeg_frames(root, vid):
+    """If ffmpeg is on the path, one video's frames encoded into an 8-fps
+    MPEG-4 file and decoded back by `preprocess.extract_frames` -> what ran."""
+    from dg_sct_tpu_torch.data import preprocess
+
+    if not preprocess.have_ffmpeg():
+        return "ffmpeg is not on the path: extract_frames not run"
+    mp4 = root / f"{vid}.mp4"
+    subprocess.run(["ffmpeg", "-y", "-loglevel", "error", "-framerate", "8", "-i",
+                    str(root / "frames" / vid / "%08d.jpg"), "-c:v", "mpeg4", str(mp4)],
+                   check=True, timeout=120)
+    n = preprocess.extract_frames(str(mp4), str(root / "ffmpeg_frames"), fps=8)
+    if n < FEATURE_FRAMES - 1:
+        raise AssertionError(f"features media: extract_frames gave {n} frames")
+    return f"ffmpeg is on the path: extract_frames decoded {n} frames of an 8-fps MPEG-4 video"
+
+
+def card_against_cpu(what, fn, params, x, tol, bad):
+    """`fn(params, x)` on the card against the same call on the CPU (params
+    and x copied), max |delta| / max |value|, beside the card's move under a
+    NUDGE relative change of x."""
+    from dg_sct_tpu_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(31)
+    flat = lambda y: np.concatenate([t.float().cpu().numpy().ravel()
+                                     for t in (y if isinstance(y, list) else [y])])
+    with torch.inference_mode():
+        got = flat(fn(params, x))
+        near = flat(fn(params, x * (1 + NUDGE * torch.randn(x.shape, generator=gen,
+                                                            device=x.device))))
+        t0 = time.perf_counter()
+        ref = flat(fn(tree_map(lambda t: t.cpu() if torch.is_tensor(t) else t, params), x.cpu()))
+        cpu_s = time.perf_counter() - t0
+    err, sens = spread_err(got, ref), spread_err(near, got)
+    print(f"{what}: card against the CPU on {tuple(x.shape)}: max |delta| / max |value| "
+          f"{err:.3e} (bound {tol:g}), max abs diff {np.abs(got - ref).max():.3e}, max |value| "
+          f"{np.abs(ref).max():.3e}; the card moves {sens:.3e} with the input changed by "
+          f"{NUDGE:g} (relative); the CPU took {cpu_s:.2f} s", flush=True)
+    if not np.isfinite(got).all() or not err <= tol:
+        bad.append(f"{what}: card and CPU disagree ({err:.3e})")
+    return err
+
+
+def run_features(device="cuda"):
+    """Phase 16: raw media (7 videos of 80 JPEG frames at 224, 44.1-kHz
+    stereo wavs) into an LLP tree through the port's own preprocessing and
+    feature extraction on the card (ResNet-152 frames and R(2+1)D-18 clips,
+    float32, TF32 off, seeded weights), each backbone held against the CPU,
+    then the tree served by a bf16 AVVPInferenceEngine on the census
+    weights (launches 4 x 2/34/48/0)."""
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import AVVPModelConfig
+    from dg_sct_tpu_torch.data import feature_extract as FE
+    from dg_sct_tpu_torch.data import preprocess
+    from dg_sct_tpu_torch.models import video_feats as VF
+    from dg_sct_tpu_torch.ops.basic import seeded_init
+    from dg_sct_tpu_torch.serve import AVVPInferenceEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    bad = []
+    cfg = AVVPModelConfig()
+    videos = [f"llp{i:08d}" for i in range(FEATURE_VIDEOS)]  # LLP ids: 11 characters
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_features_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_feature_media(root, videos)
+        t_media = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        waves = [preprocess.wav_to_wave_npy(str(root / "wav" / f"{v}.wav"),
+                                            str(root / "audio" / f"{v}.npy")) for v in videos]
+        t_wav = time.perf_counter() - t0
+        if any(w.shape != (10 * preprocess.TARGET_SR,) or w.dtype != np.float32
+               or np.abs(w).max() > 1 for w in waves):
+            raise AssertionError("features media: a wave is not 10 s at 32 kHz in [-1, 1]")
+        print(f"features media: {FEATURE_VIDEOS} videos of {FEATURE_FRAMES} JPEG frames at "
+              f"{FEATURE_SIZE} and {FEATURE_VIDEOS} 10-s {WAV_SR}-Hz stereo int16 wavs written "
+              f"in {t_media:.2f} s; wav_to_wave_npy to 10-s {preprocess.TARGET_SR}-Hz float32 "
+              f"waves in "
+              f"{t_wav:.2f} s; {ffmpeg_frames(root, videos[0])}", flush=True)
+
+        rgb_params = VF.init_resnet152(seeded_init(0, device))
+        clip_params = VF.init_r2plus1d_18(seeded_init(0, device))
+        for name, extract, params, out, n_out, dim in (
+                ("rgb", FE.extract_rgb_feats, rgb_params, "rgb", FEATURE_FRAMES, 2048),
+                ("clip", FE.extract_3d_feats, clip_params, "st", FEATURE_FRAMES // 8, 512)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = extract(str(root / "frames"), str(root / out), n_frame_steps=FEATURE_FRAMES,
+                          params=params, device=device)
+            dt = time.perf_counter() - t0
+            feats = [np.load(root / out / f"{v}.npy") for v in got]
+            if got != videos or any(f.shape != (n_out, dim) or f.dtype != np.float32
+                                    or not np.isfinite(f).all() for f in feats):
+                raise AssertionError(f"features {name}: {got} or the features' shapes "
+                                     f"{[f.shape for f in feats][:2]} or non-finite")
+            size = 224 if name == "rgb" else 112
+            print(f"features {name}: feature_extract {name} over {len(videos)} videos "
+                  f"({FEATURE_FRAMES} frames each at {size}, float32, TF32 off, seeded weights) "
+                  f"in {dt:.3f} s = {len(videos) * FEATURE_FRAMES / dt:.1f} frames/s end to "
+                  f"end (JPEG decode and resize on the host included), peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; ({n_out}, {dim}) a "
+                  f"video, |value| up to {max(np.abs(f).max() for f in feats):.3e}", flush=True)
+
+        frames224 = FE._frames(str(root / "frames"), videos[0], FEATURE_FRAMES, 224)
+        frames112 = FE._frames(str(root / "frames"), videos[0], FEATURE_FRAMES, 112)
+        x_rgb = torch.as_tensor(frames224[:FE.RGB_BATCH], device=device)
+        x_clip = torch.as_tensor(frames112.reshape((-1, FE.CLIP_FRAMES) + frames112.shape[1:]),
+                                 device=device)
+        with torch.inference_mode():
+            for name, fn, params, x, n in (
+                    ("rgb", VF.resnet152_features, rgb_params, x_rgb, FE.RGB_BATCH),
+                    ("clip", VF.r2plus1d_18_features, clip_params, x_clip, FEATURE_FRAMES)):
+                torch.cuda.reset_peak_memory_stats()
+                ms, dev_ms, _ = time_ms(lambda: fn(params, x))
+                print(f"features {name} backbone: one call on {tuple(x.shape)} {ms:.3f} ms "
+                      f"({dev_ms:.3f} ms on the card alone) = {n / dev_ms * 1e3:.1f} frames/s, "
+                      f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+                      flush=True)
+                profile_run(lambda: fn(params, x), f"one call on {tuple(x.shape)}",
+                            f"features {name} profile")
+        card_against_cpu("features rgb", VF.resnet152_features, rgb_params,
+                         x_rgb[:CPU_FRAMES], FEATURES_TOL, bad)
+        card_against_cpu("features clip", VF.r2plus1d_18_features, clip_params,
+                         x_clip[:CPU_CLIPS], FEATURES_TOL, bad)
+        del rgb_params, clip_params, x_rgb, x_clip
+        torch.cuda.empty_cache()
+
+        write_llp_csvs(root, videos)
+        ds = llp_dataset(root, cfg)
+        disk = [ds[i] for i in range(len(ds))]
+        for v, item in zip(videos, disk):
+            if not np.array_equal(item["video_st"], np.load(root / "st" / f"{v}.npy")):
+                raise AssertionError(f"features: LLPDataset's video_st of {v} is not the "
+                                     f"extracted features")
+    params, state = import_avvp_census_model(cfg)
+    eng = AVVPInferenceEngine(cfg, params, state, batch_size=BATCH, chunk=2, device=device)
+    del params, state
+    (probs, vids, counts), dt, peak = serve_timed("features avvp", stream_probs_all, eng, disk,
+                                                  AVVP_PER_FORWARD)
+    clip = np.concatenate([probs[k].ravel() for k in ("global_prob", "a_prob", "v_prob")])
+    frame = np.concatenate([probs[k].ravel() for k in ("a_frame_prob", "v_frame_prob")])
+    if (vids != videos or probs["global_prob"].shape != (FEATURE_VIDEOS, cfg.num_classes)
+            or probs["v_frame_prob"].shape != (FEATURE_VIDEOS, cfg.num_frames, cfg.num_classes)
+            or not np.isfinite(clip).all() or not np.isfinite(frame).all()
+            or clip.min() < 0 or clip.max() > 1 or frame.min() < 0 or frame.max() > 2):
+        raise AssertionError("features avvp: outputs' shapes, order or range")
+    print(f"features avvp: the extracted tree (LLPDataset: frames at {cfg.swin.img_size}, "
+          f"wav_to_wave_npy's waves, st/ from feature_extract clip) through a bf16 "
+          f"AVVPInferenceEngine on the census weights (B={BATCH}, chunk 2) in {dt:.3f} s: clip "
+          f"probabilities in [{clip.min():.4f}, {clip.max():.4f}], frame probabilities in "
+          f"[{frame.min():.4f}, {frame.max():.4f}]; launches {counts} "
+          f"({-(-FEATURE_VIDEOS // BATCH)} forwards); peak memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"features: phase 16 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the standalone modules at full width
+# ---------------------------------------------------------------------------
+
+HTSAT_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_htsat_audioset.json"
+PVT_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_avs_pvt_v2_b5.json"
+CLASSIFIER_PER_PASS = {"window_attention": 0, "block_attention": 12, "adapter_bottleneck": 0,
+                       "int8_linear": 0}  # the 12 HTS-AT blocks of one tower pass
+CLASSIFIER_OUTPUTS = ("clipwise_output", "framewise_output", "latent_output")
+# the f32 classifier with K2 against the plain one, spread_err of the three
+# outputs (clipwise and framewise as logits) each over its largest |value|:
+# above the sound kernels' reading (8.7e-6) and the plain path's move under
+# a 1e-6 relative change of the wave (1.2e-6), below K2's bias rolled by one
+# key (5.4e-3). K2's bias staged in bf16 moves the outputs 1.6e-5, 1.8x the
+# sound kernels' own rounding: no bound on these outputs separates it, so it
+# is reported beside (readings in PERF.md, section 6)
+CLASSIFIER_F32_TOL = 1e-4
+CLASSIFIER_PLANTED = ("bias rolled by one key",)
+PVT_FRAMES = 5             # an AVS clip's frames, B=2 clips a forward
+STANDALONE_TOL = 1e-4      # PVT-v2-b5 and VGGish, card against the CPU, as FEATURES_TOL
+AVENET_SPEC = (257, 1004)  # VGGSound's 10-s spectrogram: 16 kHz, nperseg 512, noverlap 353
+
+
+def import_classifier(device):
+    """The AudioSet HTS-AT census state dict (`sed_model.` stripped) through
+    the port's `convert_htsat` (527 classes, the tscam conv) onto the card by
+    `from_jax_tree` -> (params, state, line)."""
+    from dg_sct_tpu_torch.configs import HTSATConfig
+    from dg_sct_tpu_torch.models import htsat
+    from dg_sct_tpu_torch.ops.basic import seeded_init
+    from dg_sct_tpu_torch.utils import torch_convert as TC
+    from dg_sct_tpu_torch.weights import from_jax_tree
+
+    sd = TC.track(TC.strip_prefix(census_state_dict(HTSAT_CENSUS), "sed_model."))
+    params, state = TC.convert_htsat(sd)
+    unread = sorted(set(sd) - sd.accessed)
+    ref_p, ref_s = htsat.init_htsat(seeded_init(0, "meta"), HTSATConfig())
+    params = from_jax_tree(params, ref_p, device=device)
+    state = from_jax_tree(state, ref_s, device=device)
+    return params, state, (f"{len(sd)} keys of {HTSAT_CENSUS.name}: {len(sd.accessed)} read, "
+                           f"{len(unread)} unread ({', '.join(unread)})")
+
+
+def classifier_arrays(out):
+    """The classifier's outputs as float64 arrays, the clipwise and framewise
+    probabilities as their logits (a saturated sigmoid hides a change)."""
+    return {k: (torch.logit(out[k].double()) if k != "latent_output" else out[k].double())
+            .cpu().numpy() for k in CLASSIFIER_OUTPUTS}
+
+
+def classifier_flat(out, scale):
+    """The three outputs as one array, each over its reference's largest
+    |value| in `scale`: spread_err of two such arrays is the largest of the
+    three outputs' own."""
+    arrays = classifier_arrays(out)
+    return np.concatenate([arrays[k].ravel() / scale[k] for k in CLASSIFIER_OUTPUTS])
+
+
+def run_classifier(bad, device):
+    """The AudioSet classifier at B=2: 10-s and 20-s waves in bf16 and f32
+    (launches 0/12/0/0 and 0/24/0/0), the train branch once from a
+    generator (0/0/0/0), and in f32 each K2 call against its plain version
+    and the outputs against the plain forward, beside the nudge and the
+    faults planted in front of K2. -> (bf16 params, state, 10-s wave)."""
+    from dg_sct_tpu_torch.configs import HTSATConfig
+    from dg_sct_tpu_torch.models import htsat
+    from dg_sct_tpu_torch.models.ave import cast_for_compute
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = HTSATConfig()
+    params, state, line = import_classifier(device)
+    print(f"standalone htsat import: {line}", flush=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    sr, clip = cfg.frontend.sample_rate, cfg.frontend.clip_samples
+    # one clip's length (10 s: mel T <= target_t) and two (20 s: two sliding crops)
+    waves = {n: 0.1 * torch.randn(BATCH, n * clip, generator=gen, device=device) for n in (1, 2)}
+    per = lambda n: {k: v * n for k, v in CLASSIFIER_PER_PASS.items()}
+    cfb = htsat.tscam_freq_bins(cfg)
+    st = cfg.stage_resolution(cfg.num_layers - 1)[1]
+    n_framewise = (st // cfb) * st * 8 * cfg.patch_stride[1]
+    trees = {torch.bfloat16: cast_for_compute(params, torch.bfloat16), torch.float32: params}
+    with torch.inference_mode():
+        for dtype, tree in trees.items():
+            for passes in (1, 2):
+                secs = passes * clip // sr
+                fwd = lambda p, s, w=waves[passes]: htsat.classifier_forward(p, s, w, cfg)[0]
+                out, dt, peak = pretrain_forward_timed(fwd, tree, state,
+                                                       f"standalone htsat {secs} s", per(passes))
+                shapes = {k: tuple(v.shape) for k, v in out.items()}
+                if (shapes != {"clipwise_output": (BATCH, cfg.num_classes),
+                               "framewise_output": (BATCH, n_framewise, cfg.num_classes),
+                               "latent_output": (BATCH, cfg.num_features)}
+                        or not all(bool(torch.isfinite(v).all()) for v in out.values())):
+                    raise AssertionError(f"standalone htsat: outputs {shapes} or non-finite")
+                print(f"standalone htsat serve: classifier_forward, B={BATCH} {secs}-s waves "
+                      f"({passes * clip} samples, mel T = "
+                      f"{passes * clip // cfg.frontend.hop_size + 1}, "
+                      f"{passes} tower pass{'es' if passes > 1 else ''}), {str(dtype)[6:]}: "
+                      f"{dt * 1e3:.3f} ms, peak memory {peak:.3f} GiB, launches {per(passes)}; "
+                      f"clipwise in [{float(out['clipwise_output'].min()):.4f}, "
+                      f"{float(out['clipwise_output'].max()):.4f}]", flush=True)
+        profile_run(lambda: htsat.classifier_forward(trees[torch.bfloat16], state, waves[2], cfg),
+                    f"one bf16 forward of {BATCH} {2 * clip // sr}-s waves",
+                    "standalone htsat profile")
+        reset_launch_counts()
+        out, new_state = htsat.classifier_forward(params, state, waves[2], cfg, train=True,
+                                                  gen=gen)
+        counts = launch_counts()
+        if counts != NO_LAUNCHES or int(new_state["bn0"]["count"]) != 1 or not all(
+                bool(torch.isfinite(v).all()) for v in out.values()):
+            raise AssertionError(f"standalone htsat train: launches {counts}, bn0 count or "
+                                 f"non-finite")
+        print(f"standalone htsat train: the {2 * clip // sr}-s waves through the train branch "
+              f"(one random crop to {cfg.frontend.target_t} frames and SpecAugment from the "
+              f"generator, bn0 on the batch, the plain tower): launches {counts}, outputs "
+              f"finite", flush=True)
+
+        # float32: K2 side by side, the outputs against the plain forward
+        w = waves[2]
+        ref = htsat.classifier_forward(params, state, w, cfg, kernels=False)[0]
+        scale = {k: float(np.abs(v).max()) for k, v in classifier_arrays(ref).items()}
+        f_ref = classifier_flat(ref, scale)
+        calls = []
+        reset_launch_counts()
+        with side_by_side("block_attention", calls):
+            got = htsat.classifier_forward(params, state, w, cfg)[0]
+        want_calls = per(2)["block_attention"] if device == "cuda" else len(calls)
+        if launch_counts() != per(2) or not calls or len(calls) != want_calls:
+            raise AssertionError(f"standalone htsat f32: launches {launch_counts()}, "
+                                 f"{len(calls)} K2 calls checked")
+        report_calls("standalone htsat f32", "block_attention", calls, bad)
+        near = htsat.classifier_forward(
+            params, state, w * (1 + NUDGE * torch.randn(w.shape, generator=gen, device=device)),
+            cfg, kernels=False)[0]
+        f_got, f_near = classifier_flat(got, scale), classifier_flat(near, scale)
+        err, sens = spread_err(f_got, f_ref), spread_err(f_near, f_ref)
+        ga, ra = classifier_arrays(got), classifier_arrays(ref)
+        print(f"standalone htsat f32: {2 * clip // sr}-s waves, kernels vs plain (the three "
+              f"outputs, clipwise and framewise as logits, each over its largest |value|): "
+              f"spread_err {err:.3e} (bound {CLASSIFIER_F32_TOL:g}), mean_err "
+              f"{mean_err(f_got, f_ref):.3e}; per output "
+              + ", ".join(f"{k} {np.abs(ga[k] - ra[k]).max() / scale[k]:.3e}"
+                          for k in CLASSIFIER_OUTPUTS)
+              + f"; the plain path moves {sens:.3e} (mean_err {mean_err(f_near, f_ref):.3e}) "
+              f"with the wave changed by {NUDGE:g} (relative)", flush=True)
+        if not np.isfinite(f_got).all() or not err <= CLASSIFIER_F32_TOL:
+            bad.append(f"standalone htsat f32: kernels and plain path disagree ({err:.3e})")
+        run = lambda: classifier_flat(htsat.classifier_forward(params, state, w, cfg)[0], scale)
+        read_planted("block_attention", run, f_ref, CLASSIFIER_F32_TOL, "standalone htsat f32",
+                     bad, faults={k: PLANTED[k] for k in CLASSIFIER_PLANTED})
+        for name in set(PLANTED) - set(CLASSIFIER_PLANTED):
+            with planted("block_attention", PLANTED[name]):
+                out = run()
+            print(f"standalone htsat f32: planted fault, block_attention {name}: spread_err "
+                  f"{spread_err(out, f_ref):.3e}, mean_err {mean_err(out, f_ref):.3e} (reported, "
+                  f"not bounded: the outputs move about as much under the kernels' own float32 "
+                  f"rounding)", flush=True)
+    return trees[torch.bfloat16], state, waves[1]
+
+
+def timed_call(fn):
+    """fn() once to warm up, then once timed -> (output, ms)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def import_pvt(device):
+    """PVT-v2-b5 synthesized from the AVS census through `convert_pvt_v2`,
+    onto the card by `from_jax_tree` -> (params, config)."""
+    from dg_sct_tpu_torch.models import pvt
+    from dg_sct_tpu_torch.ops.basic import seeded_init
+    from dg_sct_tpu_torch.utils import torch_convert as TC
+    from dg_sct_tpu_torch.weights import from_jax_tree
+
+    pcfg = pvt.pvt_v2_b5()
+    tree = TC.convert_pvt_v2(census_state_dict(PVT_CENSUS))
+    return from_jax_tree(tree, pvt.init_pvt_v2(seeded_init(0, "meta"), pcfg), device=device), pcfg
+
+
+def run_pvt_vggish(bad, device):
+    """PVT-v2-b5 from the AVS census at B=2 x 5 frames of 224, and VGGish on
+    10 s of 16-kHz audio, each timed and held against the CPU."""
+    from dg_sct_tpu_torch.models import pvt, vggish
+    from dg_sct_tpu_torch.ops.basic import seeded_init
+
+    params, pcfg = import_pvt(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    S = pcfg.img_size
+    x = torch.randn(BATCH * PVT_FRAMES, S, S, 3, generator=gen, device=device)
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        maps, ms = timed_call(lambda: pvt.forward_features(params, x, pcfg))
+        shapes = [tuple(m.shape) for m in maps]
+        want = [(BATCH * PVT_FRAMES, S // r, S // r, c)
+                for r, c in zip((4, 8, 16, 32), pcfg.embed_dims)]
+        if shapes != want or not all(bool(torch.isfinite(m).all()) for m in maps):
+            raise AssertionError(f"standalone pvt: maps {shapes} or non-finite")
+        print(f"standalone pvt: PVT-v2-b5 from {PVT_CENSUS.name} through convert_pvt_v2 and "
+              f"from_jax_tree, forward_features on {BATCH} x {PVT_FRAMES} frames of {S}, "
+              f"float32: {ms:.3f} ms, peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+              f"GiB; maps {shapes}", flush=True)
+        profile_run(lambda: pvt.forward_features(params, x, pcfg),
+                    f"forward_features on {BATCH * PVT_FRAMES} frames", "standalone pvt profile")
+    card_against_cpu("standalone pvt", lambda p, im: pvt.forward_features(p, im, pcfg), params,
+                     x[:1], STANDALONE_TOL, bad)
+    del params, maps
+
+    vp = vggish.init_vggish(seeded_init(0, device))
+    pca = vggish.init_postprocessor(seeded_init(1, device))
+    t = np.arange(10 * vggish.SAMPLE_RATE) / vggish.SAMPLE_RATE
+    wave = (0.3 * np.sin(2 * np.pi * 440.0 * t)
+            + 0.05 * np.random.RandomState(3).randn(t.size)).astype(np.float32)
+    t0 = time.perf_counter()
+    ex = vggish.waveform_to_examples(wave)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ex_t = torch.as_tensor(ex, device=device)
+    with torch.inference_mode():
+        emb, ms = timed_call(lambda: vggish.vggish(vp, ex_t))
+        codes = vggish.postprocess(pca, emb)
+        codes_cpu = vggish.postprocess({k: v.cpu() for k, v in pca.items()}, emb.cpu()).numpy()
+    codes = codes.cpu().numpy()
+    if (ex.shape != (10, 96, 64, 1) or tuple(emb.shape) != (10, 128) or codes.min() < 0
+            or codes.max() > 255 or not (codes == np.round(codes)).all()):
+        raise AssertionError(f"standalone vggish: examples {ex.shape}, embeddings "
+                             f"{tuple(emb.shape)} or codes out of 0..255")
+    print(f"standalone vggish: 10 s of 16-kHz audio -> waveform_to_examples {ex.shape} on the "
+          f"host in {host_ms:.3f} ms -> vggish (10, 128) on the card in {ms:.3f} ms -> "
+          f"postprocess: PCA codes in [{codes.min():.0f}, {codes.max():.0f}], integral; the "
+          f"codes of the card's embeddings on the CPU differ by at most "
+          f"{np.abs(codes - codes_cpu).max():.0f}", flush=True)
+    if np.abs(codes - codes_cpu).max() > 0:
+        bad.append("standalone vggish: postprocess differs between card and CPU")
+    card_against_cpu("standalone vggish", vggish.vggish, vp, ex_t, STANDALONE_TOL, bad)
+
+
+def dormant_cases(device):
+    """(name, call, output shape) of each dormant module at its reference
+    widths, seeded weights and inputs on the card."""
+    from dg_sct_tpu_torch.models import attentions as A
+    from dg_sct_tpu_torch.models import legacy as L
+    from dg_sct_tpu_torch.models import legacy_backbones as LB
+    from dg_sct_tpu_torch.models import phm
+    from dg_sct_tpu_torch.ops.basic import seeded_init
+
+    init = seeded_init(0, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    x = lambda *shape, scale=1.0: scale * torch.randn(shape, generator=gen, device=device)
+    B, T, D = BATCH, 10, 512
+    ast = LB.init_ast(init)
+    rn50, rn50_state = LB.init_modified_resnet(init)
+    ave_net, ave_state = LB.init_avenet(init)
+    cas, weak = L.init_cas_module(init, 256), L.init_weakly_localization(init, 256)
+    avc, ava = L.init_audio_visual_contrastive(init), L.init_audio_visual_adapter(init)
+    naga = L.init_new_audio_guided_attention(init)
+    add, loc = A.init_additive(init, D), A.init_location_aware(init, D)
+    mhloc, mh = A.init_multi_head_location_aware(init, D), A.init_multi_head(init, D)
+    rel, cust = A.init_relative_multi_head(init, D), A.init_customizing(init, D)
+    ph = phm.init_phm_linear(init, 768, 768, 4, phm_init_range=0.02)
+    mel, img, spec = x(B, 1024, 128), x(B, 224, 224, 3), x(B, *AVENET_SPEC)
+    q, kv, pos = x(B, 1, D), x(B, 100, D), x(B, 100, D)
+    return [
+        ("AST (128 x 1024 mel, stride 10, 527 labels)",
+         lambda: LB.ast_forward(ast, mel, num_heads=12, apply_head=True), (B, 527)),
+        ("ModifiedResNet RN50 at 224", lambda: LB.modified_resnet(rn50, rn50_state, img)[0],
+         (B, 1024)),
+        (f"AVENet (ResNet-18 on {AVENET_SPEC[0]} x {AVENET_SPEC[1]} spectrograms)",
+         lambda: LB.avenet(ave_net, ave_state, spec)[0], (B, 309)),
+        ("CAS_Module (d_model 256)", lambda: L.cas_module(cas, x(B, T, 256)), (B, T, 29)),
+        ("WeaklyLocalizationModule (256)", lambda: L.weakly_localization(weak, x(T, B, 256))[2],
+         (B, 29)),
+        ("AudioVisualContrastive (36 x 1536 visual, 768 audio)",
+         lambda: L.audio_visual_contrastive(avc, x(B * T, 36, 1536), x(B * T, 768),
+                                            torch.softmax(x(B * T, 1, 36), -1)), (B * B, T, 1)),
+        ("AudioVisualAdapter (1536 / 768)",
+         lambda: L.audio_visual_adapter(ava, x(B * T, 1536), x(B * T, 768))[0], (B * T, 1536)),
+        ("New_Audio_Guided_Attention (7 x 7 x 512 visual, 128 audio)",
+         lambda: L.new_audio_guided_attention(naga, x(B, T, 7, 7, 512, scale=0.3),
+                                              x(T, B, 128)), (B, T, 512)),
+        ("ScaledDotProductAttention", lambda: A.scaled_dot_product_attention(q, kv, kv)[0],
+         (B, 1, D)),
+        ("DotProductAttention", lambda: A.dot_product_attention(q, kv)[0], (B, 1, D)),
+        ("AdditiveAttention", lambda: A.additive_attention(add, q, kv, kv)[0], (B, 1, D)),
+        ("LocationAwareAttention", lambda: A.location_aware_attention(loc, q, kv)[0], (B, D)),
+        ("MultiHeadLocationAwareAttention",
+         lambda: A.multi_head_location_aware_attention(mhloc, q, kv)[0], (B, 1, D)),
+        ("MultiHeadAttention", lambda: A.multi_head_attention(mh, kv, kv, kv)[0], (B, 100, D)),
+        ("RelativeMultiHeadAttention",
+         lambda: A.relative_multi_head_attention(rel, kv, kv, kv, pos), (B, 100, D)),
+        ("CustomizingAttention", lambda: A.customizing_attention(cust, q, kv)[0], (B, 1, D)),
+        ("PHM linear (768 -> 768, phm_dim 4)", lambda: phm.phm_linear(ph, x(B, 100, 768)),
+         (B, 100, 768)),
+    ]
+
+
+def run_standalone(device="cuda"):
+    """Phase 17: the AudioSet HTS-AT classifier with its long-clip branches,
+    PVT-v2-b5, VGGish and the dormant set at full width, then the profiling
+    utilities (flops_estimate of the full-width AVE forward, a trace of a
+    classifier forward)."""
+    import tempfile
+
+    from dg_sct_tpu_torch.configs import AVEModelConfig, HTSATConfig
+    from dg_sct_tpu_torch.models import ave, htsat
+    from dg_sct_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    bad = []
+    cls_params, cls_state, wave10 = run_classifier(bad, device)
+    run_pvt_vggish(bad, device)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        for name, call, shape in dormant_cases(device):
+            out, ms = timed_call(call)
+            if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"standalone dormant {name}: {tuple(out.shape)} (expected "
+                                     f"{shape}) or non-finite")
+            print(f"standalone dormant: {name}: {tuple(out.shape)} finite, {ms:.3f} ms (float32, "
+                  f"B={BATCH})", flush=True)
+    torch.cuda.empty_cache()
+
+    cfg = AVEModelConfig()
+    p, s = ave.init_ave_model(cfg, device="meta")
+    T, S = cfg.num_frames, cfg.swin.img_size
+    wave = torch.empty(BATCH, T, cfg.htsat.frontend.clip_samples, device="meta")
+    frames = torch.empty(BATCH, T, S, S, 3, device="meta")
+    t0 = time.perf_counter()
+    est = profiling.flops_estimate(
+        lambda p, s, w, i: ave.forward(p, s, w, i, cfg, kernels=False, device="meta"),
+        p, s, wave, frames)
+    top = sorted(((k, v) for k, v in est.items() if k != "flops"), key=lambda kv: -kv[1])[:3]
+    print(f"standalone profiling: flops_estimate of the full-width AVE forward at B={BATCH} "
+          f"(plain path on the meta device, PyTorch's count) {est['flops'] / 1e12:.3f} TFLOP in "
+          f"{time.perf_counter() - t0:.2f} s; " + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in top),
+          flush=True)
+    hcfg = HTSATConfig()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp, torch.inference_mode():
+        htsat.classifier_forward(cls_params, cls_state, wave10, hcfg)
+        with profiling.trace(tmp) as prof:
+            htsat.classifier_forward(cls_params, cls_state, wave10, hcfg)
+        path = Path(tmp) / "trace.json"
+        n_dev = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+        print(f"standalone profiling: trace() of one bf16 classifier forward (B={BATCH}, 10 s): "
+              f"{path.name} of {path.stat().st_size / 1e6:.3f} MB, {n_dev} device events",
+              flush=True)
+        if not path.stat().st_size or not n_dev:
+            bad.append("standalone profiling: the trace holds no device event")
+    print(f"standalone: phase 17 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", action="append",
                     choices=sorted(SOURCES) + ["avs", "avs_train", "avvp", "avvp_train", "avqa",
-                                               "avqa_train", "pretrain", "pretrain_train"],
+                                               "avqa_train", "pretrain", "pretrain_train",
+                                               "features", "standalone"],
                     help="check and time only this kernel (repeatable), or run only phase "
                          "8 (avs), 9 (avs_train), 10 (avvp), 11 (avvp_train), 12 (avqa), 13 "
-                         "(avqa_train), 14 (pretrain) or 15 (pretrain_train); skips the other "
-                         "phases")
+                         "(avqa_train), 14 (pretrain), 15 (pretrain_train), 16 (features) or 17 "
+                         "(standalone); skips the other phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4024,6 +4624,10 @@ def main() -> int:
             run_pretrain()
         if "pretrain_train" in args.only:
             run_pretrain_training()
+        if "features" in args.only:
+            run_features()
+        if "standalone" in args.only:
+            run_standalone()
         print(json.dumps(kernels_line(rows, {name: None for name in SOURCES})))
         print(card)
         print(f"partial run ({', '.join(args.only)}): no ok line", flush=True)
@@ -4045,6 +4649,8 @@ def main() -> int:
     run_avqa_training()
     run_pretrain()
     run_pretrain_training()
+    run_features()
+    run_standalone()
     print(json.dumps(kernels_line(rows, counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,7 @@ import torch
 
 from ..configs import AVEModelConfig
 from ..device import resolve_device
-from ..ops.basic import GELU_MODES, Init
+from ..ops.basic import GELU_MODES, seeded_init
 from ..utils.tree import tree_map
 from . import htsat as H
 from . import interleave as I
@@ -23,12 +23,7 @@ def init_ave_model(cfg: AVEModelConfig, *, seed: int = 0, device=None):
     """Random float32 (params, state) from a torch.Generator seeded with
     `seed`, on `device` (None: the card). On device "meta" it builds shapes
     only."""
-    device = resolve_device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-    init = Init(gen, device)
+    init = seeded_init(seed, device)
     htsat_params, htsat_state = H.init_htsat(init, cfg.htsat)
     adapter_params, adapter_state = I.init_adapters(init, cfg)
     params = {

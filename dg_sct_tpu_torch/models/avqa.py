@@ -23,7 +23,8 @@ import torch
 
 from ..configs import AVQAModelConfig
 from ..device import resolve_device
-from ..ops.basic import GELU_MODES, Init, dropout, layer_norm, layer_norm_init, linear, linear_init
+from ..ops.basic import (GELU_MODES, Init, dropout, layer_norm, layer_norm_init, linear,
+                        linear_init, seeded_init)
 from ..ops.mha import mha, mha_init
 from ..ops.rnn import lstm_cell_init, lstm_with_state
 from . import htsat as H
@@ -68,12 +69,7 @@ def init_avqa_model(cfg: AVQAModelConfig, *, seed: int = 0, device=None):
     """Random float32 (params, state) with the JAX package's tree, from a
     torch.Generator seeded with `seed`, on `device` (None: the card). On
     device "meta" it builds shapes only."""
-    device = resolve_device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-    init = Init(gen, device)
+    init = seeded_init(seed, device)
     d = cfg.embed_dim
     htsat_params, htsat_state = H.init_htsat(init, cfg.htsat)
     adapter_params, adapter_state = I.init_adapters(init, cfg)

@@ -17,7 +17,7 @@ import torch
 
 from ..configs import AVQAModelConfig
 from ..device import resolve_device
-from ..ops.basic import GELU_MODES, Init
+from ..ops.basic import GELU_MODES, seeded_init
 from . import htsat as H
 from . import swinv2 as S
 from .avqa import _grounding, audio_features, init_grounding_heads
@@ -27,12 +27,7 @@ def init_grounding_model(cfg: AVQAModelConfig, *, seed: int = 0, device=None):
     """Random float32 (params, state) with the JAX package's tree, from a
     torch.Generator seeded with `seed`, on `device` (None: the card). On
     device "meta" it builds shapes only."""
-    device = resolve_device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-    init = Init(gen, device)
+    init = seeded_init(seed, device)
     htsat_params, htsat_state = H.init_htsat(init, cfg.htsat)
     params = {"swin": S.init_swinv2(init, cfg.swin), "htsat": htsat_params,
               **init_grounding_heads(init, cfg)}

@@ -17,7 +17,7 @@ import torch
 from ..configs import AVSModelConfig
 from ..device import resolve_device
 from ..ops import dsp
-from ..ops.basic import GELU_MODES, Init, conv2d, conv2d_init, linear, linear_init
+from ..ops.basic import GELU_MODES, Init, conv2d, conv2d_init, linear, linear_init, seeded_init
 from . import htsat as H
 from . import interleave as I
 from . import swinv2 as S
@@ -52,12 +52,7 @@ def init_avs_model(cfg: AVSModelConfig, *, seed: int = 0, device=None):
     """Random float32 (params, state) with the JAX package's tree, from a
     torch.Generator seeded with `seed`, on `device` (None: the card). On
     device "meta" it builds shapes only."""
-    device = resolve_device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-    init = Init(gen, device)
+    init = seeded_init(seed, device)
     htsat_params, htsat_state = H.init_htsat(init, cfg.htsat)
     adapter_params, adapter_state = I.init_adapters(init, cfg)
     ch = cfg.channel

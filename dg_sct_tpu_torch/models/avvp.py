@@ -16,7 +16,7 @@ import torch
 
 from ..configs import AVVPModelConfig
 from ..device import resolve_device
-from ..ops.basic import GELU_MODES, Init, linear, linear_init
+from ..ops.basic import GELU_MODES, Init, linear, linear_init, seeded_init
 from ..ops.rnn import bilstm, bilstm_init
 from . import grouping as G
 from . import htsat as H
@@ -75,12 +75,7 @@ def init_avvp_model(cfg: AVVPModelConfig, *, seed: int = 0, device=None):
     torch.Generator seeded with `seed`, on `device` (None: the card). On
     device "meta" it builds shapes only. The class tokens start at zero, as
     in the JAX package."""
-    device = resolve_device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-    init = Init(gen, device)
+    init = seeded_init(seed, device)
     htsat_params, htsat_state = H.init_htsat(init, cfg.htsat)
     adapter_params, adapter_state = I.init_adapters(init, cfg)
     d, n = cfg.dim, cfg.num_classes

@@ -5,7 +5,8 @@ image, patch embed), pre-norm V1 Swin blocks with a relative-position-bias
 table, and V1 patch merging (norm, then reduction), driven block by block
 by the interleave, or alone without adapters (`forward_features`), and the
 token-semantic head (`tscam_head`), of which the pretrain model reads only
-the latent (`tscam_latent`).
+the latent (`tscam_latent`); and the standalone AudioSet classifier with its
+long-clip branches (`classifier_forward`).
 """
 from __future__ import annotations
 
@@ -186,3 +187,36 @@ def tscam_head(params, x, cfg: HTSATConfig):
     framewise = torch.repeat_interleave(torch.sigmoid(out), 8 * cfg.patch_stride[1], dim=1)
     return {"clipwise_output": torch.sigmoid(out.mean(1)), "framewise_output": framewise,
             "latent_output": latent}
+
+
+def classifier_forward(params, state, wave, cfg: HTSATConfig, *, train=False, gen=None,
+                       positions=None, mixup_lambda=None, kernels=True, gelu="exact"):
+    """The standalone HTS-AT classifier with its long-clip branches: wave
+    (N, L) -> (`tscam_head`'s outputs, new state). Mel frames T <= target_t
+    run frontend, tower and head once. Longer waves: in training one crop to
+    target_t a clip, from `positions` (N,) or else drawn from `gen`
+    (`dsp.crop_positions`; SpecAugment draws first), through the plain
+    tower; in eval the sliding crops of `dsp.long_clip_eval_positions`,
+    each through the tower and the head, the outputs averaged. Eval covers
+    T <= 2 * target_t + 1, where each crop fits the mel image."""
+    x, new_state = mel_features(params, state, wave, cfg, train=train, gen=gen,
+                                mixup_lambda=mixup_lambda)
+    target = cfg.frontend.target_t
+    T = x.shape[1]
+    tower = lambda xm, k: tscam_head(params, run_tower(params, tokens_from_mel(params, xm, cfg),
+                                                       cfg, kernels=k, gelu=gelu), cfg)
+    if T <= target:
+        return tower(x, kernels and not train), new_state
+    if train:
+        if positions is None:
+            if gen is None:
+                raise ValueError("a long clip in training takes crop positions or a generator")
+            positions = dsp.crop_positions(gen, x.shape[0], T, target, x.device)
+        return tower(dsp.crop_mel(x, positions, target), False), new_state
+    starts, crop = dsp.long_clip_eval_positions(T)
+    if crop > target:
+        raise ValueError(f"mel T={T} > {2 * target + 1}: the sliding-crop eval covers "
+                         f"T <= 2 * target_t + 1")
+    outs = [tower(dsp.crop_mel(x, torch.full((x.shape[0],), p, dtype=torch.int64), crop),
+                  kernels) for p in starts]
+    return {k: sum(o[k] for o in outs) / len(outs) for k in outs[0]}, new_state

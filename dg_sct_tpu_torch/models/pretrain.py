@@ -28,7 +28,7 @@ import torch
 
 from ..configs import PretrainModelConfig
 from ..device import resolve_device
-from ..ops.basic import Init, linear, linear_init
+from ..ops.basic import linear, linear_init, seeded_init
 from . import adapter as A
 from . import clip as C
 from . import htsat as H
@@ -50,12 +50,8 @@ def init_pretrain_model(cfg: PretrainModelConfig, classnames, *, clap_text_featu
     tree, from a torch.Generator seeded with `seed`, on `device` (None: the
     card); on "meta" shapes only. `clap_text_features` (n_cls, embed_dim),
     e.g. from `compute_clap_text_features`; random if None."""
-    device = resolve_device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-    init = Init(gen, device)
+    init = seeded_init(seed, device)
+    device = init.device
     blocks = htsat_block_list(cfg)
     if len(blocks) != cfg.clip.vision_layers:
         raise ValueError(f"{len(blocks)} HTS-AT blocks pair with {cfg.clip.vision_layers} ViT "

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import constant
+from ..device import constant, resolve_device
 from . import dsp
 
 
@@ -57,6 +57,17 @@ class Init:
 
     def full(self, shape, value):
         return torch.full(shape, value, device=self.device, dtype=self.dtype)
+
+
+def seeded_init(seed: int = 0, device=None) -> Init:
+    """An `Init` drawing from a torch.Generator seeded with `seed` on
+    `device` (None: the card); on "meta" shapes only."""
+    device = resolve_device(device)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    return Init(gen, device)
 
 
 def linear_init(init: Init, in_dim, out_dim, bias=True):
@@ -205,13 +216,79 @@ def patch_embed(params, x, patch):
     return y
 
 
-def conv2d(params, x):
-    """Stride-1 "SAME" convolution, x (N, H, W, C) -> (N, H, W, O), as XLA's
-    NHWC / HWIO convolution: cuDNN (or the CPU's) on channels-last views,
-    no copy of x."""
-    w = params["kernel"].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, params.get("bias"), padding="same")
-    return y.permute(0, 2, 3, 1)
+def _tuple(v, n):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+
+def conv_padding(padding, spatial, kernel, stride, dilation):
+    """XLA's padding of a convolution as ((lo, hi), ...) per spatial axis:
+    "VALID" none; "SAME" XLA's split, total = max((ceil(n / s) - 1) * s +
+    (k - 1) * d + 1 - n, 0), lo = total // 2, hi = total - lo; or explicit
+    pairs, as given."""
+    if padding == "VALID":
+        return tuple((0, 0) for _ in spatial)
+    if padding == "SAME":
+        pads = []
+        for n, k, s, d in zip(spatial, kernel, stride, dilation):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    return tuple((int(lo), int(hi)) for lo, hi in padding)
+
+
+def _conv(x, kernel, bias, stride, padding, dilation, groups, nd):
+    """x (N, *spatial, C), kernel (*window, C / groups, O) -> (N, *spatial', O)
+    through torch's NC* convolution on channels-last views; an asymmetric
+    padding goes through `F.pad` first."""
+    stride, dilation = _tuple(stride, nd), _tuple(dilation, nd)
+    pads = conv_padding(padding, x.shape[1:-1], kernel.shape[:nd], stride, dilation)
+    fmt = torch.channels_last if nd == 2 else torch.channels_last_3d
+    w = kernel.permute(nd + 1, nd, *range(nd)).contiguous(memory_format=fmt)
+    xc = x.permute(0, nd + 1, *range(1, nd + 1))
+    if all(lo == hi for lo, hi in pads):
+        sym = tuple(lo for lo, _ in pads)
+    else:
+        xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
+        sym = 0
+    conv = F.conv2d if nd == 2 else F.conv3d
+    y = conv(xc, w, bias, stride=stride, padding=sym, dilation=dilation, groups=groups)
+    return y.permute(0, *range(2, nd + 2), 1)
+
+
+def conv2d(params, x, *, stride=1, padding="SAME", dilation=1, groups=1):
+    """XLA's NHWC / HWIO convolution, x (N, H, W, C) -> (N, H', W', O):
+    cuDNN (or the CPU's) on channels-last views. `padding` is "SAME" (XLA's
+    split), "VALID" or explicit ((lo, hi), (lo, hi)); `groups` is XLA's
+    feature_group_count (kernel (kh, kw, C / groups, O)). Stride-1 "SAME"
+    convolutions take torch's own "same" padding, no copy of x."""
+    if padding == "SAME" and _tuple(stride, 2) == (1, 1):
+        w = params["kernel"].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, params.get("bias"), padding="same",
+                     dilation=dilation, groups=groups)
+        return y.permute(0, 2, 3, 1)
+    return _conv(x, params["kernel"], params.get("bias"), stride, padding, dilation, groups, 2)
+
+
+def conv3d(params, x, *, stride=1, padding="SAME", dilation=1, groups=1):
+    """XLA's NTHWC / THWIO convolution, x (N, T, H, W, C) -> (N, T', H',
+    W', O), padded as `conv2d`."""
+    return _conv(x, params["kernel"], params.get("bias"), stride, padding, dilation, groups, 3)
+
+
+def max_pool2d(x, window, stride, padding="VALID"):
+    """XLA's reduce_window max over (H, W) of x (N, H, W, C), padded with
+    -inf ("VALID" or explicit ((lo, hi), (lo, hi)))."""
+    window, stride = _tuple(window, 2), _tuple(stride, 2)
+    pads = conv_padding(padding, x.shape[1:3], window, stride, (1, 1))
+    xc = x.permute(0, 3, 1, 2)
+    if any(p for lo_hi in pads for p in lo_hi):
+        xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi], value=-math.inf)
+    return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
+
+
+def avg_pool2d(x, k):
+    """k x k / k "VALID" average pool of x (N, H, W, C)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), k, k).permute(0, 2, 3, 1)
 
 
 def merge_2x2(x, res):

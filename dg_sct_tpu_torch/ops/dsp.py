@@ -214,3 +214,24 @@ def reshape_wav2img(x, cfg: AudioFrontendConfig):
     x = x.transpose(1, 2).reshape(N, Fm, fr, target_t // fr)
     x = x.transpose(1, 2).reshape(N, fr * Fm, target_t // fr)
     return x[..., None]
+
+
+def crop_mel(x, positions, crop_size: int):
+    """Per-example time crop of mel features: x (N, T, F) and (N,) integer
+    start frames -> (N, crop_size, F)."""
+    idx = positions.to(x.device, torch.int64)[:, None] + torch.arange(crop_size, device=x.device)
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def crop_positions(gen, n: int, T: int, crop_size: int, device):
+    """The training crop's (n,) start frames, uniform in [0, T - crop_size),
+    drawn from `gen`."""
+    return torch.randint(0, T - crop_size, (n,), generator=gen, device=device)
+
+
+def long_clip_eval_positions(T: int):
+    """The eval long-clip branch's sliding crops of T mel frames: (start
+    frames, crop size), crop (T - 1) // 2 at a (T - 1) // 4 stride."""
+    crop = (T - 1) // 2
+    overlap = (T - 1) // 4
+    return list(range(0, T - crop - 1, overlap)), crop

@@ -12,8 +12,8 @@ the reference's is `DG-SCT/AVE/main_trans.py`).
 one eval step. `train` saves the full train state as `best_{acc:.2f}.npz`
 whenever the test accuracy does not fall, and stops after `--early-stop`
 epochs without a new best. `--batch-size` is per card; the data-parallel
-mesh of the JAX entry point is not ported. Without `--device` it runs
-on the card and fails without one.
+mesh of the JAX entry point is ROADMAP queue 1, item 8 (the parallel
+modes). Without `--device` it runs on the card and fails without one.
 """
 from __future__ import annotations
 

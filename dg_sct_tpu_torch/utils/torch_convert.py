@@ -17,6 +17,11 @@ leading `module.` (nn.DataParallel) is stripped. `track` and
 `AVE_CKPT_IGNORED_PATTERNS` (or `AVS_CKPT_IGNORED_PATTERNS`,
 `AVVP_CKPT_IGNORED_PATTERNS`, `AVQA_CKPT_IGNORED_PATTERNS`,
 `AVQA_GROUNDING_CKPT_IGNORED_PATTERNS`), or unexplained.
+
+Also torchvggish's VGG and PCA (`convert_vggish`, `convert_vggish_pca`)
+and the renames of HF `transformers` Swin-V2 and CLAP-audio state dicts
+into the timm and reference keys (`hf_swinv2_to_timm_keys`,
+`hf_clap_audio_to_htsat_keys`).
 """
 from __future__ import annotations
 
@@ -457,6 +462,26 @@ def convert_pvt_v2(sd, depths=(3, 6, 40, 3)):
     return {"stages": stages}
 
 
+def convert_vggish(sd):
+    """torchvggish VGG state dict -> the `models/vggish.py` tree: the
+    convolutions at `features.{0,3,6,8,11,13}` (pools and ReLUs between),
+    fc1-fc3 at `embeddings.{0,2,4}`. The flatten order matches: torchvggish
+    moves channels last before its view, and the port's maps are
+    channels-last already."""
+    return {"convs": [convert_conv2d(sd, f"features.{i}") for i in (0, 3, 6, 8, 11, 13)],
+            "fc1": convert_linear(sd, "embeddings.0"),
+            "fc2": convert_linear(sd, "embeddings.2"),
+            "fc3": convert_linear(sd, "embeddings.4")}
+
+
+def convert_vggish_pca(sd):
+    """The Postprocessor's PCA: torch keeps pca_means as a (128, 1) column
+    and applies `M @ (e.T - means)`, the port `(e - means) @ M.T` with flat
+    means."""
+    return {"pca_matrix": np.asarray(sd["pca_eigen_vectors"]),
+            "pca_means": np.asarray(sd["pca_means"]).reshape(-1)}
+
+
 def convert_avs_model(sd, num_adapters=12, groups=2, tpavi_stages=(0, 1, 2, 3)):
     """Full Pred_endecoder state dict -> (params, state, pvt): `pvt` is the
     bypassed `encoder_backbone.` PVT-v2-b5 tree, or None if the checkpoint
@@ -717,3 +742,102 @@ def census_report(sd: TrackedSD, ignored=AVE_CKPT_IGNORED_PATTERNS):
             unexplained.append(k)
     return {"consumed": consumed, "ignored": ignored_keys,
             "unexplained": unexplained}
+
+
+# ---------------------------------------------------------------------------
+# HF `transformers` state dicts renamed into the timm / reference key layout
+# the converters above read
+# ---------------------------------------------------------------------------
+
+def numpy_state(sd) -> Dict[str, np.ndarray]:
+    """A state dict of tensors or arrays -> {name: np.ndarray}."""
+    return {k: (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
+            for k, v in sd.items()}
+
+
+# timm block key -> HF block key, under `encoder.layers.{s}.blocks.{b}` (Swin-V2)
+# or `audio_encoder.layers.{s}.blocks.{b}` (CLAP's HTS-AT)
+_HF_BLOCK_KEYS = (("attn.proj.weight", "attention.output.dense.weight"),
+                  ("attn.proj.bias", "attention.output.dense.bias"),
+                  ("norm1.weight", "layernorm_before.weight"),
+                  ("norm1.bias", "layernorm_before.bias"),
+                  ("norm2.weight", "layernorm_after.weight"),
+                  ("norm2.bias", "layernorm_after.bias"),
+                  ("mlp.fc1.weight", "intermediate.dense.weight"),
+                  ("mlp.fc1.bias", "intermediate.dense.bias"),
+                  ("mlp.fc2.weight", "output.dense.weight"),
+                  ("mlp.fc2.bias", "output.dense.bias"))
+
+
+def _hf_qkv(sd, a, kind):
+    return np.concatenate([sd[f"{a}query.{kind}"], sd[f"{a}key.{kind}"],
+                           sd[f"{a}value.{kind}"]], axis=0)
+
+
+def _hf_blocks(sd, out, prefix, attn_extra):
+    """Every block and downsample key under `prefix` + `layers.` renamed into
+    `out`; `attn_extra(a, pre)` adds the attention's own keys."""
+    for k in sd:
+        if not k.startswith(prefix + "layers."):
+            continue
+        parts = k[len(prefix):].split(".")
+        s = parts[1]
+        if parts[2] == "downsample":
+            out[f"layers.{s}." + ".".join(parts[2:])] = sd[k]
+            continue
+        if parts[2] != "blocks":
+            continue
+        pre, hfb = f"layers.{s}.blocks.{parts[3]}", f"{prefix}layers.{s}.blocks.{parts[3]}"
+        if pre + ".attn.qkv.weight" in out:
+            continue
+        a = hfb + ".attention.self."
+        out[pre + ".attn.qkv.weight"] = _hf_qkv(sd, a, "weight")
+        attn_extra(a, pre)
+        for timm_key, hf_key in _HF_BLOCK_KEYS:
+            out[f"{pre}.{timm_key}"] = sd[f"{hfb}.{hf_key}"]
+    return out
+
+
+def hf_swinv2_to_timm_keys(sd) -> Dict[str, np.ndarray]:
+    """A `transformers.Swinv2Model` state dict -> timm's swinv2 keys, what
+    `convert_swinv2` reads: q, k and v fused into qkv (V2 keeps q_bias and
+    v_bias beside it, no fused bias)."""
+    sd = numpy_state(sd)
+    out = {"patch_embed.proj.weight": sd["embeddings.patch_embeddings.projection.weight"],
+           "patch_embed.proj.bias": sd["embeddings.patch_embeddings.projection.bias"],
+           "patch_embed.norm.weight": sd["embeddings.norm.weight"],
+           "patch_embed.norm.bias": sd["embeddings.norm.bias"],
+           "norm.weight": sd["layernorm.weight"], "norm.bias": sd["layernorm.bias"]}
+
+    def attn(a, pre):
+        out[pre + ".attn.q_bias"] = sd[a + "query.bias"]
+        out[pre + ".attn.v_bias"] = sd[a + "value.bias"]
+        out[pre + ".attn.logit_scale"] = sd[a + "logit_scale"]
+        cpb = a + "continuous_position_bias_mlp."
+        out[pre + ".attn.cpb_mlp.0.weight"] = sd[cpb + "0.weight"]
+        out[pre + ".attn.cpb_mlp.0.bias"] = sd[cpb + "0.bias"]
+        out[pre + ".attn.cpb_mlp.2.weight"] = sd[cpb + "2.weight"]
+
+    return _hf_blocks(sd, out, "encoder.", attn)
+
+
+def hf_clap_audio_to_htsat_keys(sd) -> Dict[str, np.ndarray]:
+    """A `transformers.ClapAudioModel` state dict -> the reference HTS-AT
+    keys, what `convert_htsat` reads: q, k and v fused, `batch_norm` as
+    bn0."""
+    sd = numpy_state(sd)
+    P = "audio_encoder."
+    out = {}
+    for suffix in ("weight", "bias"):
+        out[f"patch_embed.proj.{suffix}"] = sd[f"{P}patch_embed.proj.{suffix}"]
+        out[f"patch_embed.norm.{suffix}"] = sd[f"{P}patch_embed.norm.{suffix}"]
+        out[f"norm.{suffix}"] = sd[f"{P}norm.{suffix}"]
+        out[f"bn0.{suffix}"] = sd[f"{P}batch_norm.{suffix}"]
+    out["bn0.running_mean"] = sd[f"{P}batch_norm.running_mean"]
+    out["bn0.running_var"] = sd[f"{P}batch_norm.running_var"]
+
+    def attn(a, pre):
+        out[pre + ".attn.qkv.bias"] = _hf_qkv(sd, a, "bias")
+        out[pre + ".attn.relative_position_bias_table"] = sd[a + "relative_position_bias_table"]
+
+    return _hf_blocks(sd, out, P, attn)

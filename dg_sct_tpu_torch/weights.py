@@ -1,5 +1,6 @@
 """Carries the JAX package's AVE, AVS, AVVP, AVQA or pretrain (params, state)
-across to the port.
+across to the port (`from_jax`), or any other of its trees beside the port's
+own (`from_jax_tree`).
 
 The port keeps the JAX tree: the same nested dict keys and list lengths, and
 the same leaf shapes (linear kernels (in, out), grouped kernels
@@ -41,10 +42,25 @@ def _convert(ref, src, path, device):
             raise ValueError(f"{path}: expected a list of {len(ref)}")
         return [_convert(r, s, f"{path}[{i}]", device)
                 for i, (r, s) in enumerate(zip(ref, src))]
+    if not torch.is_tensor(ref):  # a non-array leaf (a head count, a stride, a flag)
+        if np.ndim(src) != 0 or np.asarray(src).item() != ref:
+            raise ValueError(f"{path}: {src!r}, the port expects {ref!r}")
+        return ref
     arr = np.asarray(src)
     if tuple(arr.shape) != tuple(ref.shape):
         raise ValueError(f"{path}: shape {tuple(arr.shape)}, the port expects {tuple(ref.shape)}")
     return torch.as_tensor(np.array(arr), device=device).to(ref.dtype)
+
+
+def from_jax_tree(tree_np, ref, *, device=None):
+    """Any JAX tree (nested dicts and lists of numpy arrays: PVT, VGGish and
+    its PCA, the video backbones, the AST, ModifiedResNet, AVENet, the
+    legacy modules, PHM, the attention variants) -> the port's float32 tree
+    on `device` (None: the card), walked beside `ref`, the port's own tree
+    of the same module (its initialiser on the "meta" device). Every leaf
+    must be consumed and every shape match; a non-array leaf (a head count,
+    a stride, a flag) must equal the port's."""
+    return _convert(ref, tree_np, "tree", resolve_device(device))
 
 
 _INITS = ((AVSModelConfig, init_avs_model), (AVVPModelConfig, init_avvp_model),
