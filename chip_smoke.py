@@ -257,8 +257,34 @@ Phases, each fatal on failure:
      modules, the eight attention variants, PHM): shapes, finite, a time
      each; `profiling.flops_estimate` of the full-width AVE forward and a
      `profiling.trace` of one classifier forward. The bounds of phases 16
-     and 17 are checked once every reading of the phase is printed.
-It then prints the kernels line (launches from phase 4, K4's from phase 7),
+     and 17 are checked once every reading of the phase is printed;
+  18. the parallel modes at full width (seeded_model's weights), each world
+     of spawned processes (this one has initialized CUDA) with a timeout on
+     every group and on the world, one rank a card under NCCL where the
+     machine has a card for each, else every rank on card 0 under gloo:
+     one process first runs the eval forward (B=2, adapters folded) in bf16
+     and in float32, and the train step on a global batch of 4 with the
+     draws and mixup on in float32 and in float64, and reads its own
+     gradient's move under reordered clips in both dtypes; a 2-rank world
+     then takes the data-parallel step (2 clips a rank, same seed) in
+     float32 (loss and BN state within PAR_STAT_RTOL) and in float64 (loss,
+     BN state and the gradient's relative L2 within PAR_F64_RTOL, every
+     param after Adam's step within PAR_F64_STEP lr), the ranks' params
+     bit-identical, no launch; then one AVS-S4 and one AVQA stage-2 step
+     (finite losses), sequence-parallel eval over data 1 x seq 2 (K1/K2/K3
+     = 2/34/48 a rank) and tensor-parallel eval over data 1 x model 2
+     (36/0/0 a rank, each rank's tower bytes against one process's); a
+     3-rank world pipelines stage 2's three pairs in PIPE_MICRO
+     microbatches (2/42/56 a rank); each eval, in bf16 and in float32,
+     against the one-process forward of its dtype on event_scores and the
+     per-frame is_event_scores (float32 within PAR_F32_TOL, bf16 within
+     PAR_BF16_FACTOR times the bf16 forward's drift from float32); then
+     `ave_main --mode smoke` in an NCCL world of one rank. Every process
+     group times out after 120 s (`parallel.mesh.TIMEOUT`), every world
+     after PAR_JOIN_S. Times of several ranks on one card are not speeds of
+     a mode. The bounds are checked once every reading is printed.
+It then prints the kernels line (launches from phase 4, K4's from phase 7,
+each eval mode's of phase 18 summed over its ranks as parallel_launches),
 the card line and, last, the ok line.
 
     python3 chip_smoke.py --only adapter_bottleneck   # phases 1-3 for K3 alone
@@ -272,12 +298,13 @@ the card line and, last, the ok line.
     python3 chip_smoke.py --only pretrain_train       # phases 1, 2, the pretrain K3 and 15
     python3 chip_smoke.py --only features             # phases 1, 2 and 16
     python3 chip_smoke.py --only standalone           # phases 1, 2 and 17
+    python3 chip_smoke.py --only parallel             # phases 1, 2 and 18
 
 `--only NAME` (repeatable) checks and times only the named kernels and skips
-phases 4 to 17 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
+phases 4 to 18 (`--only int8_linear` for K4); `--only avs`, `avs_train`,
 `avvp`, `avvp_train`, `avqa`, `avqa_train`, `pretrain`, `pretrain_train`,
-`features` and `standalone` run phase 8, 9, 10, 11, 12, 13, 14, 15, 16 or 17
-alone. Such a run prints no ok line. Phase 10's K1-K3 shapes are phase
+`features`, `standalone` and `parallel` run phase 8, 9, 10, 11, 12, 13, 14, 15,
+16, 17 or 18 alone. Such a run prints no ok line. Phase 10's K1-K3 shapes are phase
 4's (20 frames and 20 audio clips a forward; a 1 s wave is resized to the
 same log-mel image), which phase 3 checks and times; phase 12's K1 and K2
 shapes are phase 4's too, its K3 shapes phase 3's AVQA rows. Phase 14's K2
@@ -834,9 +861,11 @@ def check_pretrain_k3(gen):
     return rows
 
 
-def kernels_line(rows, counts):
+def kernels_line(rows, counts, parallel=None):
     """One entry per kernel: the bfloat16 times summed over one forward's
-    calls (the main path serves bf16), errors over every case and dtype."""
+    calls (the main path serves bf16), errors over every case and dtype;
+    with `parallel` (phase 18), each eval mode's launches summed over its
+    ranks as `parallel_launches`."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         checked = [r for r in rows if r["name"] == name]  # errors over every check
@@ -857,6 +886,8 @@ def kernels_line(rows, counts):
             composed_ms=known("composed_ms"), composed_device_ms=known("composed_device_ms")))
         if name == "int8_linear":
             out[-1].update(matmul_ms=known("matmul_ms"), matmul_device_ms=known("matmul_device_ms"))
+        if parallel:
+            out[-1]["parallel_launches"] = {mode: n[name] for mode, n in parallel.items()}
     return {"kernels": out}
 
 
@@ -4569,16 +4600,489 @@ def run_standalone(device="cuda"):
         raise AssertionError("; ".join(bad))
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: the parallel modes
+# ---------------------------------------------------------------------------
+
+PAR_LR = 5e-4             # ave_main's --lr: Adam's first step moves an element by about lr
+PAR_BATCH = 4             # the data-parallel global batch: 2 clips a rank
+PAR_SEED = 43             # ave_main's --seed, the generator of the draws
+PAR_EVAL_BATCH = 2        # the eval worlds' clips (20 frames and 20 audio clips a forward)
+PIPE_RANKS = 3            # stage 2 at full width: [None, None, b0] x 6, three repeated pairs
+PIPE_MICRO = 4            # microbatches of the 20 rows through the pipe
+PAR_JOIN_S = 420.0        # a world's whole run (each process group times out after 120 s)
+# DP against one process on the card. Float32 rounding of this model's gradient is amplified
+# by the backward through the towers (one process's own gradient moves by several percent
+# under reordered clips, the adapters' leaves carrying the move; read here in both dtypes), so
+# the gradients and Adam's step are held in float64, where that move collapses:
+PAR_STAT_RTOL = 1e-4      # float32: loss and BN running stats, relative
+PAR_F64_RTOL = 1e-9       # float64: loss, BN running stats and the gradient's relative L2
+PAR_F64_STEP = 1e-3       # float64: every param after Adam's step, in units of lr
+# eval of one mode against the one-process forward, max |delta| per output (event_scores and
+# the per-frame is_event_scores): float32 (rounding only: other GEMM heights and reduction
+# orders), and bf16 at this factor times the bf16 forward's own drift from the float32 one
+PAR_F32_TOL = 1e-4
+PAR_BF16_FACTOR = 4.0
+PAR_OUTPUTS = ("event_scores", "is_event_scores")
+# a rank's forward in each eval mode (K1/K2/K3/K4); the pipe ranks run stages 0, 1 and 3
+# whole (K1 2, K2 10, K3 24) and one of stage 2's three pairs (K2 8, K3 8) a microbatch
+PAR_LAUNCHES = {
+    "sp": {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48,
+           "int8_linear": 0},
+    "tp": {"window_attention": 36, "block_attention": 0, "adapter_bottleneck": 0,
+           "int8_linear": 0},
+    "pipe": {"window_attention": 2, "block_attention": 10 + 8 * PIPE_MICRO,
+             "adapter_bottleneck": 24 + 8 * PIPE_MICRO, "int8_linear": 0},
+}
+
+
+def par_world_backend(world):
+    """One rank a card with NCCL where the machine has `world` cards; else
+    every rank on card 0 under gloo (NCCL refuses two ranks on one card)."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def par_eval_inputs(cfg):
+    """The eval worlds' seeded clips: wave (B, T, L) and ImageNet-normalized
+    frames (B, T, S, S, 3), float32 numpy."""
+    rs = np.random.RandomState(7)
+    T, L, S = cfg.num_frames, cfg.htsat.frontend.clip_samples, cfg.swin.img_size
+    wave = (0.3 * rs.randn(PAR_EVAL_BATCH, T, L)).clip(-1, 1).astype(np.float32)
+    frames = rs.randn(PAR_EVAL_BATCH, T, S, S, 3).astype(np.float32)
+    return wave, frames
+
+
+def par_eval_model(cfg, device, dtype):
+    """The eval worlds' weights: seeded_model's, adapters folded (K3 takes
+    them), cast to `dtype` once; and the config of that compute dtype."""
+    import dataclasses
+    from dg_sct_tpu_torch.models.ave import cast_for_compute
+    from dg_sct_tpu_torch.models.interleave import fold_adapters_eval
+
+    params, state = seeded_model(cfg, device=device)
+    params, state = fold_adapters_eval(params, state, cfg)
+    return (cast_for_compute(params, dtype), state,
+            dataclasses.replace(cfg, compute_dtype=dtype))
+
+
+def par_dp_batch(cfg):
+    """The DP step's seeded global batch, with mixup lambdas (numpy)."""
+    from dg_sct_tpu_torch.data.ave import synthetic_batch
+
+    T = cfg.num_frames
+    b = synthetic_batch(PAR_BATCH, img_size=cfg.swin.img_size, num_segments=T,
+                        sr=cfg.htsat.frontend.clip_samples, seed=3)
+    b["mixup_lambda"] = np.random.RandomState(3).beta(0.5, 0.5, size=(PAR_BATCH * T,)).astype(
+        np.float32)
+    return b
+
+
+def par_dp_step(cfg, device, group, rows, *, dtype=torch.float32, seed=PAR_SEED,
+                reverse=False):
+    """One AVE train mini-step (accum 1, Adam at PAR_LR, remat "full") in
+    `dtype` from seeded_model's weights on `rows(batch)` with mixup and a
+    generator of `seed` (SpecAugment, drop_path, dropout; None: no draws);
+    `reverse`: the global batch's clips in reverse order -> (loss, new
+    trainable, new state, launches, seconds, Adam's first moment)."""
+    import dataclasses
+    from dg_sct_tpu_torch.configs import TrainConfig
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.train import ave_train
+    from dg_sct_tpu_torch.utils.tree import tree_map
+
+    params, state = seeded_model(cfg, device=device)
+    params, state = (tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+                     for tree in (params, state))
+    tr, fr = ave_train.partition_params(params)
+    opt = ave_train.make_optimizer(tr, TrainConfig(accum_steps=1, lr=PAR_LR, lr_mlp=PAR_LR),
+                                   steps_per_epoch=1)
+    step = ave_train.make_train_step(dataclasses.replace(cfg, compute_dtype=dtype), opt,
+                                     device=device, group=group)
+    b = par_dp_batch(cfg)
+    if reverse:
+        b = {k: np.ascontiguousarray(v.reshape((PAR_BATCH, -1) + v.shape[1:])[::-1].reshape(v.shape))
+             for k, v in b.items()}
+    batch = {k: torch.as_tensor(v, device=device) for k, v in rows(b).items()}
+    batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+    gen = None
+    if seed is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr, state, opt_state, m = step(tr, fr, state, opt.init(tr), batch, gen)
+    loss = float(m["loss"])
+    return loss, tr, state, launch_counts(), time.perf_counter() - t0, opt_state["mu"]
+
+
+def par_task_steps(device, group, rows):
+    """One AVS-S4 and one AVQA stage-2 train step at full width (f32, no
+    generator) on this rank's rows of a global batch of 4 -> their losses."""
+    from dg_sct_tpu_torch import configs
+    from dg_sct_tpu_torch.configs import TrainConfig
+    from dg_sct_tpu_torch.data.avqa import synthetic_batch as avqa_batch
+    from dg_sct_tpu_torch.data.avs import synthetic_batch as avs_batch
+    from dg_sct_tpu_torch.train import ave_train, avqa_train, avs_train
+
+    losses = {}
+    for task, cfg in (("avs", configs.AVSModelConfig()), ("avqa", configs.AVQAModelConfig())):
+        if task == "avs":
+            params, state = seeded_avs_model(cfg, device=device)
+            batch = avs_batch(4, img_size=cfg.mask_size, seed=5, mask_frames=1,
+                              num_frames=cfg.num_frames, sr=cfg.htsat.frontend.clip_samples)
+        else:
+            params, state = seeded_avqa_model(cfg, device=device)
+            batch = avqa_batch(4, img_size=cfg.swin.img_size, num_frames=cfg.num_frames,
+                               seed=5, sr=AVQA_SEGMENT)
+        tr, fr = ave_train.partition_params(params)
+        opt = ave_train.make_optimizer(tr, TrainConfig(accum_steps=1, lr=1e-4, lr_mlp=1e-4),
+                                       steps_per_epoch=1)
+        make = avs_train.make_train_step if task == "avs" else avqa_train.make_train_step
+        kw = {"task": "s4"} if task == "avs" else {}
+        step = make(cfg, opt, device=device, group=group, **kw)
+        local = {k: torch.as_tensor(v, device=device) for k, v in rows(batch).items()}
+        _, _, _, m = step(tr, fr, state, opt.init(tr), local)
+        losses[task] = float(m["loss"])
+        del params, state, tr, fr, opt, step, local
+        torch.cuda.empty_cache()
+    return losses
+
+
+def par_eval(mode, cfg, device, mesh_, dtype):
+    """One eval forward (kernels on) in `dtype` of this rank's part under
+    `mode` (None: one process) -> ({output: numpy} of PAR_OUTPUTS,
+    launches, seconds, bytes of the params it holds, bytes of those under
+    swin and htsat)."""
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dg_sct_tpu_torch.parallel import mesh as M
+    from dg_sct_tpu_torch.parallel.tp import TensorParallel
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+
+    params, state, ecfg = par_eval_model(cfg, device, dtype)
+    wave, frames = par_eval_inputs(cfg)
+    batch, kw = {"wave": wave, "image": frames}, {}
+    if mode == "tp":
+        params = M.tp_shard_params(params, mesh_)
+        kw["tp"] = TensorParallel(mesh_.group(M.MODEL_AXIS))
+        torch.cuda.empty_cache()
+    elif mode == "sp":
+        batch = M.shard_batch_seq(batch, mesh_)
+        kw["seq"] = mesh_.group(M.SEQ_AXIS)
+    elif mode == "pipe":
+        kw["pipeline"] = (mesh_.group(M.PIPE_AXIS), PIPE_MICRO)
+    nbytes = lambda keep: sum(t.numel() * t.element_size() for p, t in tree_paths(params)
+                              if keep(p))
+    run = lambda: ave.forward(params, state, batch["wave"], batch["image"], ecfg, kernels=True,
+                              device=device, **kw)
+    with torch.inference_mode():
+        run()                                      # warm-up: cuBLAS, the libraries' loads
+        torch.cuda.synchronize(device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+    res = {"out": {k: out[k].float().cpu().numpy() for k in PAR_OUTPUTS},
+           "launches": launch_counts(), "seconds": dt, "bytes": nbytes(lambda p: True),
+           "tower_bytes": nbytes(lambda p: p[0] in ("swin", "htsat"))}
+    if mode == "pipe":
+        res["pipelined"] = list(out["pipelined_stages"])
+    return res
+
+
+def par_evals(mode, cfg, device, mesh_, res):
+    """`mode`'s bf16 and float32 eval forwards into res[mode] and
+    res[mode + "_f32"], each with this rank's peak memory."""
+    for key, dtype in ((mode, torch.bfloat16), (mode + "_f32", torch.float32)):
+        torch.cuda.reset_peak_memory_stats(device)
+        res[key] = par_eval(mode, cfg, device, mesh_, dtype)
+        res[key]["peak"] = torch.cuda.max_memory_allocated(device)
+        torch.cuda.empty_cache()
+
+
+def par_rank(rank, world, init_file, job, out_dir, results):
+    """One rank of a phase-18 world: "dp_eval" (2 ranks: the DP AVE step in
+    float32 and in float64, the AVS-S4 and AVQA stage-2 DP steps, SP eval
+    over data 1 x seq 2, TP eval over data 1 x model 2) or "pipe"
+    (PIPE_RANKS ranks). Puts (rank, "ok", readings) or (rank, "error",
+    traceback) on `results`."""
+    import traceback
+    import torch.distributed as dist
+
+    try:
+        backend = par_world_backend(world)
+        device = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from dg_sct_tpu_torch.configs import AVEModelConfig
+        from dg_sct_tpu_torch.parallel import mesh as M
+        from dg_sct_tpu_torch.utils.tree import tree_leaves
+
+        M.init_world(backend, f"file://{init_file}", rank, world)
+        cfg, res = AVEModelConfig(), {"backend": backend, "device": str(device)}
+        if job == "dp_eval":
+            data = M.make_mesh(world)
+            group = data.group(M.DATA_AXIS)
+            rows = lambda b: M.shard_batch(b, data)
+            for key, dtype in (("dp", torch.float32), ("dp_f64", torch.float64)):
+                torch.cuda.reset_peak_memory_stats(device)
+                loss, tr, state, counts, dt, mu = par_dp_step(cfg, device, group, rows,
+                                                              dtype=dtype)
+                # every rank's trainable leaves against rank 0's, bit for bit
+                flat = torch.cat([t.reshape(-1) for t in tree_leaves(tr)])
+                ref = flat.clone()
+                dist.broadcast(ref, src=0, group=group)
+                res[key] = {"loss": loss, "launches": counts, "seconds": dt,
+                            "same_as_rank0": bool(torch.equal(flat, ref)),
+                            "peak": torch.cuda.max_memory_allocated(device)}
+                if rank == 0:
+                    keep = {"state": state} if dtype == torch.float32 else {
+                        "trainable": tr, "state": state, "mu": mu}
+                    torch.save(keep, Path(out_dir) / f"{key}_rank0.pt")
+                del tr, state, mu, flat, ref
+                torch.cuda.empty_cache()
+            res["tasks"] = par_task_steps(device, group, rows)
+            for mode, shape in (("sp", {M.DATA_AXIS: 1, M.SEQ_AXIS: world}),
+                                ("tp", {M.DATA_AXIS: 1, M.MODEL_AXIS: world})):
+                par_evals(mode, cfg, device, M.Mesh(shape), res)
+        else:
+            par_evals("pipe", cfg, device, M.make_mesh(world, M.PIPE_AXIS), res)
+        dist.destroy_process_group()
+        results.put((rank, "ok", res))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def par_world(job, world, tmp):
+    """`par_rank` in `world` spawned processes (spawn: this process has
+    initialized CUDA) -> each rank's readings. A rank's failure, a rank that
+    ends without a result, or a world past PAR_JOIN_S raises; every process
+    it started is gone when it returns."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init_file = Path(tmp) / f"{job}.rendezvous"
+    procs = [ctx.Process(target=par_rank, args=(r, world, str(init_file), job, str(tmp), results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, errors, deadline = {}, [], time.monotonic() + PAR_JOIN_S
+    try:
+        while len(got) < world and not errors:
+            try:
+                rank, status, payload = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode is not None and r not in got]
+                if dead:
+                    errors.append(f"ranks {dead} ended without a result")
+                elif time.monotonic() > deadline:
+                    errors.append(f"the world did not finish within {PAR_JOIN_S} s")
+                continue
+            if status == "ok":
+                got[rank] = payload
+            else:
+                errors.append(f"rank {rank}:\n{payload}")
+    finally:
+        for p in procs:
+            p.join(timeout=30 if errors else PAR_JOIN_S)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    if errors:
+        raise AssertionError(f"parallel world {job}: " + "\n".join(errors))
+    return [got[r] for r in range(world)]
+
+
+def par_check_launches(mode, key, ranks, bad):
+    """Each rank's launches of res[key] against PAR_LAUNCHES[mode]; returns
+    their sum."""
+    total = {k: 0 for k in PAR_LAUNCHES[mode]}
+    for r, res in enumerate(ranks):
+        got = res[key]["launches"]
+        if got != PAR_LAUNCHES[mode]:
+            bad.append(f"{key} rank {r}: launches {got}, expected {PAR_LAUNCHES[mode]}")
+        for k in total:
+            total[k] += got[k]
+    return total
+
+
+def par_check_eval(mode, ranks, one, drift, bad, extra=""):
+    """Print and check `mode`'s bf16 and float32 evals (each rank's outputs
+    against the one-process forward of its dtype, `one`) -> the bf16
+    launches summed over ranks."""
+    launches = None
+    for key, dtype in ((mode, "bf16"), (mode + "_f32", "f32")):
+        err = {k: max(float(np.abs(r[key]["out"][k] - one[dtype][k]).max()) for r in ranks)
+               for k in PAR_OUTPUTS}
+        bound = ({k: PAR_BF16_FACTOR * drift[k] for k in PAR_OUTPUTS} if dtype == "bf16"
+                 else {k: PAR_F32_TOL for k in PAR_OUTPUTS})
+        total = par_check_launches(mode, key, ranks, bad)
+        launches = launches or total
+        print(f"parallel {mode} {dtype}: {len(ranks)} ranks ({ranks[0]['backend']}), "
+              f"B={PAR_EVAL_BATCH}: forward {max(r[key]['seconds'] for r in ranks):.3f} s, peak "
+              f"{[round(r[key]['peak'] / 2**30, 3) for r in ranks]} GiB, max |delta| from one "
+              f"process "
+              + ", ".join(f"{k} {err[k]:.3e} (bound {bound[k]:.3e})" for k in PAR_OUTPUTS)
+              + f", launches a rank {ranks[0][key]['launches']}{extra if dtype == 'bf16' else ''}",
+              flush=True)
+        for k in PAR_OUTPUTS:
+            if not err[k] <= bound[k]:
+                bad.append(f"{mode} {dtype}: {k} {err[k]:.3e} from the one-process forward")
+    return launches
+
+
+def run_parallel(device="cuda"):
+    """Phase 18 -> {mode: bf16 launches summed over ranks}."""
+    import tempfile
+    from dg_sct_tpu_torch.configs import AVEModelConfig
+    from dg_sct_tpu_torch.train import ave_main
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    cfg, bad, launches = AVEModelConfig(), [], {}
+    card = card_line()
+    # one process: the eval forward in bf16 and in float32 (the bf16 bound is
+    # this drift), then the train steps on the global batch
+    one = {"bf16": par_eval(None, cfg, device, None, torch.bfloat16),
+           "f32": par_eval(None, cfg, device, None, torch.float32)}
+    drift = {k: float(np.abs(one["bf16"]["out"][k] - one["f32"]["out"][k]).max())
+             for k in PAR_OUTPUTS}
+    one_bytes = one["bf16"]["tower_bytes"]
+    one = {k: v["out"] for k, v in one.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss1, _, st1, _, dt1, _ = par_dp_step(cfg, device, None, lambda b: b)
+    one_peak = torch.cuda.max_memory_allocated()
+    loss64, tr64, st64, _, dt64, mu64 = par_dp_step(cfg, device, None, lambda b: b,
+                                                    dtype=torch.float64)
+
+    def rel_l2(got, ref, keep=lambda p: True):
+        """|got - ref| / |ref| over the leaves (by path) that `keep`."""
+        num = sum(((got[p] - t) ** 2).sum() for p, t in ref.items() if keep(p))
+        return float(torch.sqrt(num / sum((t ** 2).sum() for p, t in ref.items() if keep(p))))
+
+    # one process's own gradient under the global batch's clips in reverse
+    # order (no draws: reordered clips would take other draws), in both dtypes
+    reorder = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        mu, mu_rev = (dict(tree_paths(par_dp_step(cfg, device, None, lambda b: b, dtype=dtype,
+                                                  seed=None, reverse=rev)[-1]))
+                      for rev in (False, True))
+        reorder[name] = {part: rel_l2(mu_rev, mu, lambda p: (p[0] == "adapters") == ad)
+                         for part, ad in (("adapters", True), ("the rest", False))}
+        reorder[name]["all"] = rel_l2(mu_rev, mu)
+        del mu, mu_rev
+        torch.cuda.empty_cache()
+    print(f"parallel one process: f32 train step B={PAR_BATCH} in {dt1:.3f} s, loss "
+          f"{loss1:.6f}, peak {one_peak / 2**30:.3f} GiB; f64 in {dt64:.3f} s, loss {loss64:.9f}; "
+          f"the gradient's relative L2 move under reordered clips: "
+          + "; ".join(f"{n} " + ", ".join(f"{part} {v:.3e}" for part, v in r.items())
+                      for n, r in reorder.items())
+          + f"; bf16 eval's drift from f32 {', '.join(f'{k} {v:.3e}' for k, v in drift.items())}"
+          f" ({card})", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = par_world("dp_eval", 2, tmp)
+        dp_s = time.perf_counter() - t0
+        # the data-parallel step against the one-process step on the global batch
+        rel = lambda a, b: abs(a - b) / abs(b)
+        state_rel = lambda got, ref: max(
+            float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for (_, a), (_, b) in zip(tree_paths(got), tree_paths(ref)))
+        got = torch.load(Path(tmp) / "dp_rank0.pt", map_location=device)
+        dp = [r["dp"] for r in ranks]
+        loss_err, st_err = rel(dp[0]["loss"], loss1), state_rel(got["state"], st1)
+        got = torch.load(Path(tmp) / "dp_f64_rank0.pt", map_location=device)
+        d64 = [r["dp_f64"] for r in ranks]
+        loss64_err, st64_err = rel(d64[0]["loss"], loss64), state_rel(got["state"], st64)
+        grad_err = rel_l2(dict(tree_paths(got["mu"])), dict(tree_paths(mu64)))
+        ref_tr = dict(tree_paths(tr64))
+        step_err = max(float((t - ref_tr[p]).abs().max()) for p, t in tree_paths(got["trainable"]))
+        del got, st1, tr64, st64, mu64, ref_tr
+        torch.cuda.empty_cache()
+        print(f"parallel dp: 2 ranks ({ranks[0]['backend']}, {ranks[0]['device']} and "
+              f"{ranks[1]['device']}) B={PAR_BATCH // 2} each, draws and mixup on: world "
+              f"{dp_s:.1f} s; f32 step {max(r['seconds'] for r in dp):.3f} s, peak "
+              f"{[round(r['peak'] / 2**30, 3) for r in dp]} GiB, loss {dp[0]['loss']:.6f} vs one "
+              f"process {loss1:.6f} (rel {loss_err:.2e}, bound {PAR_STAT_RTOL}), BN state rel "
+              f"{st_err:.2e} (bound {PAR_STAT_RTOL}); f64 step "
+              f"{max(r['seconds'] for r in d64):.3f} s, peak "
+              f"{[round(r['peak'] / 2**30, 3) for r in d64]} GiB, loss rel {loss64_err:.2e}, "
+              f"BN state rel {st64_err:.2e}, gradient relative L2 {grad_err:.2e} (bounds "
+              f"{PAR_F64_RTOL}), params after Adam's step max |delta| {step_err / PAR_LR:.2e} lr "
+              f"(bound {PAR_F64_STEP} lr); ranks' params bit-identical "
+              f"{[r['same_as_rank0'] for r in dp + d64]}; launches "
+              f"{[r['launches'] for r in dp + d64]}", flush=True)
+        if not (loss_err <= PAR_STAT_RTOL and st_err <= PAR_STAT_RTOL
+                and loss64_err <= PAR_F64_RTOL and st64_err <= PAR_F64_RTOL
+                and grad_err <= PAR_F64_RTOL and step_err <= PAR_F64_STEP * PAR_LR
+                and all(r["same_as_rank0"] for r in dp + d64)):
+            bad.append("dp: the data-parallel step is not the one-process step")
+        if any(sum(r["launches"].values()) for r in dp + d64):
+            bad.append("dp: a train step launched a kernel")
+        tasks = [r["tasks"] for r in ranks]
+        print(f"parallel dp tasks: AVS-S4 loss {tasks[0]['avs']:.6f}, AVQA stage-2 loss "
+              f"{tasks[0]['avqa']:.6f} (2 ranks, global batch 4, f32)", flush=True)
+        if not all(np.isfinite(t[k]) and t[k] == tasks[0][k] for t in tasks for k in t):
+            bad.append(f"dp tasks: losses {tasks}")
+        launches["sp"] = par_check_eval("sp", ranks, one, drift, bad)
+        tb = [r["tp"]["tower_bytes"] for r in ranks]
+        launches["tp"] = par_check_eval(
+            "tp", ranks, one, drift, bad,
+            f"; tower bytes a rank {tb} against one process's {one_bytes} ({tb[0] / one_bytes:.3f})")
+        if max(tb) > 0.6 * one_bytes:
+            bad.append("tp: a rank holds more than 0.6 of the towers")
+
+        t0 = time.perf_counter()
+        ranks = par_world("pipe", PIPE_RANKS, tmp)
+        print(f"parallel pipe: world {time.perf_counter() - t0:.1f} s, n_micro {PIPE_MICRO}, "
+              f"pipelined stages {[r['pipe']['pipelined'] for r in ranks]}", flush=True)
+        launches["pipe"] = par_check_eval("pipe", ranks, one, drift, bad)
+        if any(r[k]["pipelined"] != [2] for r in ranks for k in ("pipe", "pipe_f32")):
+            bad.append("pipe: stage 2 was not pipelined")
+
+    # ave_main through the entry point in a world of one rank under NCCL
+    t0 = time.perf_counter()
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    res = ave_main.main(["--mode", "smoke", "--batch-size", "2", "--synthetic-steps", "1",
+                         "--world-size", "1", "--rank", "0", "--init-method",
+                         f"tcp://127.0.0.1:{port}", "--dist-backend", "nccl"])
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    print(f"parallel ave_main: a {backend} world of one rank, --mode smoke B=2: loss "
+          f"{res['loss']:.6f}, eval accuracy {res['eval_acc']:.2f} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (np.isfinite(res["loss"]) and backend == "nccl"):
+        bad.append("ave_main: no finite loss in an NCCL world")
+    print(f"parallel: phase 18 in {time.perf_counter() - t_phase:.1f} s ({card}); times of "
+          f"several ranks on one card are not speeds of a mode: the ranks share its SMs and "
+          f"hand over through host memory", flush=True)
+    if bad:
+        raise AssertionError("phase 18: " + "; ".join(bad))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", action="append",
                     choices=sorted(SOURCES) + ["avs", "avs_train", "avvp", "avvp_train", "avqa",
                                                "avqa_train", "pretrain", "pretrain_train",
-                                               "features", "standalone"],
+                                               "features", "standalone", "parallel"],
                     help="check and time only this kernel (repeatable), or run only phase "
                          "8 (avs), 9 (avs_train), 10 (avvp), 11 (avvp_train), 12 (avqa), 13 "
-                         "(avqa_train), 14 (pretrain), 15 (pretrain_train), 16 (features) or 17 "
-                         "(standalone); skips the other phases")
+                         "(avqa_train), 14 (pretrain), 15 (pretrain_train), 16 (features), 17 "
+                         "(standalone) or 18 (parallel); skips the other phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4628,7 +5132,8 @@ def main() -> int:
             run_features()
         if "standalone" in args.only:
             run_standalone()
-        print(json.dumps(kernels_line(rows, {name: None for name in SOURCES})))
+        par = run_parallel() if "parallel" in args.only else None
+        print(json.dumps(kernels_line(rows, {name: None for name in SOURCES}, par)))
         print(card)
         print(f"partial run ({', '.join(args.only)}): no ok line", flush=True)
         return 0
@@ -4651,7 +5156,8 @@ def main() -> int:
     run_pretrain_training()
     run_features()
     run_standalone()
-    print(json.dumps(kernels_line(rows, counts)))
+    par = run_parallel()
+    print(json.dumps(kernels_line(rows, counts, par)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

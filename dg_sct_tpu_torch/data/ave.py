@@ -240,17 +240,26 @@ def _drain(q, producer, stop):
 
 
 def batched_iterator(dataset, batch_size: int, *, shuffle=True, seed=0, drop_last=True,
-                     num_workers=4, prefetch=2, collate=default_collate) -> Iterator[dict]:
+                     num_workers=4, prefetch=2, collate=default_collate,
+                     shard=None) -> Iterator[dict]:
     """Threaded prefetching loader: a pool of `num_workers` threads decodes
     a batch's samples, the collator stacks them, and up to `prefetch` ready
     batches wait ahead of the consumer. Batches come in order; an error in a
-    worker is raised to the consumer."""
+    worker is raised to the consumer. `shard` = (rank, world): data
+    parallelism, every rank orders the same global batches and loads only
+    its contiguous share of each one's rows (uneven shares of a last,
+    smaller batch; a rank's empty share is skipped): every sample is loaded
+    by exactly one rank, none twice."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
     batches = [order[i:i + batch_size] for i in range(0, len(order), batch_size)]
     if drop_last:
         batches = [b for b in batches if len(b) == batch_size]
+    if shard is not None:
+        rank, world = shard
+        batches = [b[rank * len(b) // world:(rank + 1) * len(b) // world] for b in batches]
+        batches = [b for b in batches if len(b)]
     q: queue_mod.Queue = queue_mod.Queue(maxsize=max(prefetch, 1))
     stop = threading.Event()
 

@@ -7,14 +7,19 @@ import functools
 import torch
 
 
-def resolve_device(device=None) -> torch.device:
-    """`None` means the card. Without one, raise instead of running on the
-    CPU: the CPU is used only when the caller asks for it."""
+def resolve_device(device=None, index: int | None = None) -> torch.device:
+    """`None` means the card: card `index` (a data-parallel rank's, e.g.
+    torchrun's LOCAL_RANK), or the current one. Without it, raise instead of
+    running on the CPU: the CPU is used only when the caller asks for it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' "
                                "to run on the CPU")
-        return torch.device("cuda")
+        if index is None:
+            return torch.device("cuda")
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(f"no CUDA device {index}: {torch.cuda.device_count()} visible")
+        return torch.device("cuda", index)
     return torch.device(device)
 
 

@@ -106,11 +106,36 @@ def _kernel_f32(p):
     return p["kernel"]
 
 
-def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=False):
+def _channels(p, sl):
+    """A BN's or a grouped linear's bias cut to the channels `sl`; a grouped
+    kernel is kept (it is this rank's groups already)."""
+    return {k: (v if k == "kernel" or k == "count" else v[sl]) for k, v in p.items()}
+
+
+def _split_bottleneck(params, state, z, cfg: AdapterConfig, tp):
+    """Stage 5's products on this rank's groups of a tensor-parallel split
+    (eval): its input channels through its down and up kernels and their BN
+    channels, then the channels of every rank gathered (before LN_post)."""
+    C = z.shape[-1]
+    cin = tp.share(C)
+    dsl = tp.share(params["down"]["kernel"].shape[2] * cfg.num_conv_group)
+    h = grouped_linear(_channels(params["down"], dsl), z[..., cin])
+    if cfg.use_bn and "bn1" in params:
+        h, _ = batch_norm(_channels(params["bn1"], dsl), _channels(state["bn1"], dsl), h)
+    out = grouped_linear(_channels(params["up"], cin), torch.relu(h))
+    if cfg.use_bn and "bn2" in params:
+        out, _ = batch_norm(_channels(params["bn2"], cin), _channels(state["bn2"], cin), out)
+    return tp.gather_channels(out)
+
+
+def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=False,
+            group=None, tp=None):
     """x: (B, N, C) this tower's tokens; other: (B, M, D) prompting tokens.
     Returns (residual (B, N, C), spatial maps (B, 1, N), new state); in
-    training bn1 and bn2 normalize with the batch's statistics and the new
-    state holds their updated running stats."""
+    training bn1 and bn2 normalize with the batch's statistics (the global
+    batch's under data parallelism over `group`) and the new state holds
+    their updated running stats. `tp`: an eval forward whose bottleneck
+    kernels are this rank's groups (`parallel.tp`)."""
     B, N, C = x.shape
     M, D = other.shape[1], other.shape[2]
 
@@ -159,18 +184,24 @@ def adapter(params, state, x, other, cfg: AdapterConfig, *, kernels=True, train=
 
     # ---- stage 5: bottleneck --------------------------------------------------------
     folded = "bn1" not in params and "bn2" not in params and "gate" not in params
-    if kernels and not train and folded and cfg.is_post_layernorm and not cfg.avs_variant:
+    split = tp is not None and tp.splits(cfg.num_conv_group)
+    if (kernels and not train and folded and not split and cfg.is_post_layernorm
+            and not cfg.avs_variant):
         return fused_bottleneck(params, x, has_ln1=cfg.is_before_layernorm), sp_maps, state
     ln_before = cfg.is_before_layernorm and not cfg.avs_variant
     z = layer_norm(params["ln_before"], x) if ln_before else x
     new_state = dict(state)
-    h = grouped_linear(params["down"], z)
-    if cfg.use_bn and "bn1" in params:
-        h, new_state["bn1"] = batch_norm(params["bn1"], state["bn1"], h, train=train, axis=-1)
-    out = grouped_linear(params["up"], torch.relu(h))
-    if cfg.use_bn and "bn2" in params:
-        out, new_state["bn2"] = batch_norm(params["bn2"], state["bn2"], out, train=train,
-                                           axis=-1)
+    if split:
+        out = _split_bottleneck(params, state, z, cfg, tp)
+    else:
+        h = grouped_linear(params["down"], z)
+        if cfg.use_bn and "bn1" in params:
+            h, new_state["bn1"] = batch_norm(params["bn1"], state["bn1"], h, train=train,
+                                             axis=-1, group=group)
+        out = grouped_linear(params["up"], torch.relu(h))
+        if cfg.use_bn and "bn2" in params:
+            out, new_state["bn2"] = batch_norm(params["bn2"], state["bn2"], out, train=train,
+                                               axis=-1, group=group)
     gate = cfg.use_gate and "gate" in params
     if gate and cfg.avs_variant:
         out = params["gate"] * out

@@ -12,6 +12,7 @@ import torch
 from ..configs import AVEModelConfig
 from ..device import resolve_device
 from ..ops.basic import GELU_MODES, seeded_init
+from ..parallel.comm import gather_frames
 from ..utils.tree import tree_map
 from . import htsat as H
 from . import interleave as I
@@ -48,7 +49,7 @@ def cast_for_compute(tree, dtype):
 
 def forward(params, state, wave, images, cfg: AVEModelConfig, *, train=False, kernels=True,
             int8_attn=False, gelu="exact", device=None, gen=None, mixup_lambda=None,
-            remat_policy="full"):
+            remat_policy="full", group=None, tp=None, seq=None, pipeline=None):
     """wave: (B, T, L); images: (B, T, H, W, 3) channels-last frames, both
     tensors or arrays, moved to `device` (None: the card), where `params`
     must lie. `kernels` runs K1-K3 where the JAX package's three Pallas
@@ -64,9 +65,22 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, train=False, ke
     `mixup_lambda` (B*T,) mixes the log-mel maps; `remat_policy` is the
     interleave's checkpointing ("full", "dots" or "none"). With a
     `cfg.compute_dtype` other than float32, the float params and the inputs
-    are cast to it here; gradients flow back through the cast."""
+    are cast to it here; gradients flow back through the cast.
+
+    Parallel modes (`parallel/`): `group`, a data-parallel group (training
+    on this rank's rows of the global batch: `gen` a `RowShard`, BN
+    statistics and mixup over the whole batch); in eval `tp`, a
+    `parallel.tp.TensorParallel` over shards from `mesh.tp_shard_params`;
+    `seq`, a sequence-parallel group: wave and images hold this rank's
+    T / seq frames of each clip, the towers and adapters run them without a
+    collective (they are frame-local in eval), and the heads' inputs are
+    gathered to the whole clip; `pipeline` = (pipe group, n_micro), stage
+    2's repeated pairs through GPipe, and the outputs hold
+    "pipelined_stages"."""
     if gelu not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu!r} not in {GELU_MODES}")
+    if train and (tp is not None or seq is not None or pipeline is not None):
+        raise ValueError("tensor, sequence and pipeline parallelism run eval forwards only")
     device = resolve_device(device)
     wave = torch.as_tensor(wave, device=device)
     images = torch.as_tensor(images, device=device)
@@ -82,9 +96,12 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, train=False, ke
                                  kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
                                  train=train,
                                  gen=gen if train else None, mixup_lambda=mixup_lambda,
-                                 remat_policy=remat_policy)
+                                 remat_policy=remat_policy, group=group, tp=tp,
+                                 pipeline=pipeline)
     f_v = feats["f_v"].reshape(B, T, -1)
     f_a = feats["f_a"].reshape(B, T, -1)
+    if seq is not None:
+        f_v, f_a = gather_frames(f_v, seq), gather_frames(f_a, seq)
     head_gen = gen if train else None
     video_q, audio_q, av_gate = heads.temporal_attention(params["temporal_attn"], f_v, f_a,
                                                          train=train, gen=head_gen)
@@ -93,4 +110,6 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, train=False, ke
            "event_scores": event_scores,
            "av_gate": av_gate[..., 0].transpose(0, 1),
            "av_score": av_score}
+    if pipeline is not None:
+        out["pipelined_stages"] = feats["pipelined_stages"]
     return (out, new_state) if train else out

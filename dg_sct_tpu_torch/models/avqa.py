@@ -160,7 +160,7 @@ def nega_tokens(params, visual_nega, cfg: AVQAModelConfig, *, kernels=True, int8
 
 def forward(params, state, wave, visual_posi, visual_nega, question, cfg: AVQAModelConfig, *,
             train=False, kernels=True, int8_attn=False, gelu="exact", device=None, gen=None,
-            mixup_lambda=None, remat_policy="full"):
+            mixup_lambda=None, remat_policy="full", group=None):
     """wave (B, T, L); visual_posi and visual_nega (B, T, H, W, 3)
     channels-last frames, visual_nega None to skip the negative branch;
     question (B, L) int token ids; tensors or arrays, moved to `device`
@@ -175,7 +175,8 @@ def forward(params, state, wave, visual_posi, visual_nega, question, cfg: AVQAMo
     (kernels as `kernels` says). `gen`, a torch.Generator on `device`, draws
     the towers' SpecAugment and drop_path and the heads' dropout (None: none
     of them); `mixup_lambda` (B*T,) mixes the log-mel maps; `remat_policy`
-    is the interleave's checkpointing."""
+    is the interleave's checkpointing; `group`, data parallelism over this
+    rank's rows of the global batch (`models.ave.forward`)."""
     if gelu not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu!r} not in {GELU_MODES}")
     device = resolve_device(device)
@@ -194,7 +195,7 @@ def forward(params, state, wave, visual_posi, visual_nega, question, cfg: AVQAMo
     feats, new_state = I.forward(params, state, wave.reshape(B * T, -1), frames(visual_posi),
                                  cfg, kernels=kernels and not train, int8_attn=int8_attn,
                                  gelu=gelu, train=train, gen=gen, mixup_lambda=mixup_lambda,
-                                 remat_policy=remat_policy)
+                                 remat_policy=remat_policy, group=group)
     nega = None
     if visual_nega is not None:
         nega = nega_tokens(params, frames(visual_nega), cfg, kernels=kernels,

@@ -78,7 +78,7 @@ def init_avs_model(cfg: AVSModelConfig, *, seed: int = 0, device=None):
 
 def forward(params, state, images, wave, cfg: AVSModelConfig, *, train=False, kernels=True,
             int8_attn=False, gelu="exact", device=None, gen=None, mixup_lambda=None,
-            remat_policy="full"):
+            remat_policy="full", group=None):
     """images: (B, T, H, W, 3) at `mask_size`; wave: (B, T, L); tensors or
     arrays, moved to `device` (None: the card), where `params` must lie.
     `kernels`, `int8_attn` and `gelu` as `models.ave.forward` takes them (the
@@ -94,7 +94,8 @@ def forward(params, state, images, wave, cfg: AVSModelConfig, *, train=False, ke
     dropout (None: none of them); `mixup_lambda` (B*T,) mixes the log-mel
     maps; `remat_policy` is the interleave's checkpointing ("full", "dots"
     or "none"); TPAVI and the decoder keep their activations, as in the JAX
-    package."""
+    package; `group`, data parallelism over this rank's rows of the global
+    batch (`models.ave.forward`), TPAVI's BNs included."""
     if gelu not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu!r} not in {GELU_MODES}")
     device = resolve_device(device)
@@ -114,7 +115,8 @@ def forward(params, state, images, wave, cfg: AVSModelConfig, *, train=False, ke
     feats, new_state = I.forward(params, state, wave.reshape(B * T, -1), imgs, cfg,
                                  kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
                                  train=train, gen=gen, mixup_lambda=mixup_lambda,
-                                 remat_policy=remat_policy, return_stage_taps=True)
+                                 remat_policy=remat_policy, return_stage_taps=True,
+                                 group=group)
 
     audio_feature = linear(params["audio_linear"], feats["f_a"][:, 0, :].reshape(B, T, -1))
     maps = []
@@ -138,12 +140,12 @@ def forward(params, state, images, wave, cfg: AVSModelConfig, *, train=False, ke
         if cfg.tpavi_vv_flag:
             z, _, new_state["tpavi"][name] = TP.tpavi(params["tpavi"][name],
                                                       state["tpavi"][name], x5, None,
-                                                      train=train)
+                                                      train=train, group=group)
             acc, count = acc + z.reshape(maps[i].shape), count + 1
         if cfg.tpavi_va_flag:
             z, a_fea_list[i], new_state["tpavi"][name] = TP.tpavi(
                 params["tpavi"][name], state["tpavi"][name], x5, audio_flat.reshape(B, T, -1),
-                train=train)
+                train=train, group=group)
             acc, count = acc + z.reshape(maps[i].shape), count + 1
         maps[i] = acc / count
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.basic import Init, layer_norm, layer_norm_init, linear, linear_init, mlp, mlp_init
+from ..ops.draws import draw
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +67,8 @@ def hard_softmax(logits, axis):
 
 def gumbel_noise(gen, shape, device, dtype=torch.float32):
     """Standard Gumbel draws -log(-log(U)), U uniform in [tiny, 1), from `gen`."""
-    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    u = draw(gen, lambda s, g: torch.rand(s, generator=g, device=device, dtype=torch.float32),
+             shape)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return (-torch.log(-torch.log(u))).to(dtype)
 

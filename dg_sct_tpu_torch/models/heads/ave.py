@@ -36,13 +36,14 @@ def init_decoder_layer(init: Init, d_model, ffn):
             "norm2": layer_norm_init(init, d_model)}
 
 
-def _dropper(gen, train, rate):
-    """Dropout at `rate` from `gen` in training; the identity without `gen`."""
-    return lambda t: t if gen is None else dropout(gen, t, rate, train)
+def _dropper(gen, train, rate, batch_axis=0):
+    """Dropout at `rate` from `gen` in training; the identity without `gen`.
+    `batch_axis`: the batch axis of what it drops (1 for time-major)."""
+    return lambda t: t if gen is None else dropout(gen, t, rate, train, batch_axis)
 
 
 def encoder_layer(params, src, *, nhead, train=False, gen=None, p_drop=P_DROP):
-    drop = _dropper(gen, train, p_drop)
+    drop = _dropper(gen, train, p_drop, batch_axis=1)
     s2 = mha(params["self_attn"], src, src, src, num_heads=nhead, gen=gen,
              dropout_rate=p_drop, train=train)
     src = layer_norm(params["norm1"], src + drop(s2))
@@ -52,7 +53,7 @@ def encoder_layer(params, src, *, nhead, train=False, gen=None, p_drop=P_DROP):
 
 def decoder_layer(params, tgt, memory, *, nhead, train=False, gen=None, p_drop=P_DROP):
     """memory = cat([memory, tgt]); cross-attention only."""
-    drop = _dropper(gen, train, p_drop)
+    drop = _dropper(gen, train, p_drop, batch_axis=1)
     mem = torch.cat([memory, tgt], dim=0)
     t2 = mha(params["multihead_attn"], tgt, mem, mem, num_heads=nhead, gen=gen,
              dropout_rate=p_drop, train=train)

@@ -61,17 +61,18 @@ def init_htsat(init: Init, cfg: HTSATConfig):
 
 
 def mel_features(params, state, wave, cfg: HTSATConfig, *, train=False, gen=None,
-                 mixup_lambda=None):
+                 mixup_lambda=None, group=None):
     """wave (N, L) -> ((N, T, mel) after bn0, new state). Training: bn0 on
     the batch's statistics, then SpecAugment (when `gen` is given), then
-    mixup (when `mixup_lambda` (N,) is given)."""
+    mixup (when `mixup_lambda` (N,) is given). `group`: data parallelism,
+    bn0's statistics and mixup's flip over the global batch."""
     fcfg = cfg.frontend
     x = dsp.logmel(dsp.power_spectrogram(wave, fcfg, fcfg.stft_compute), fcfg)
-    x, bn0_state = batch_norm(params["bn0"], state["bn0"], x, train=train, axis=-1)
+    x, bn0_state = batch_norm(params["bn0"], state["bn0"], x, train=train, axis=-1, group=group)
     if train and gen is not None:
         x = dsp.spec_augment(gen, x, fcfg)
     if train and mixup_lambda is not None:
-        x = dsp.do_mixup(x, mixup_lambda)
+        x = dsp.do_mixup(x, mixup_lambda, group)
     return x, {"bn0": bn0_state}
 
 
@@ -83,26 +84,28 @@ def tokens_from_mel(params, x, cfg: HTSATConfig):
 
 
 def frontend(params, state, wave, cfg: HTSATConfig, *, train=False, gen=None,
-             mixup_lambda=None):
+             mixup_lambda=None, group=None):
     """wave (N, L) -> (patch tokens (N, (spec/4)^2, E), new state)."""
     x, new_state = mel_features(params, state, wave, cfg, train=train, gen=gen,
-                                mixup_lambda=mixup_lambda)
+                                mixup_lambda=mixup_lambda, group=group)
     return tokens_from_mel(params, x, cfg), new_state
 
 
-def block(params, x, *, dim, heads, res, ws, shift, kernels=True, gelu="exact", drop=None):
+def block(params, x, *, dim, heads, res, ws, shift, kernels=True, gelu="exact", drop=None,
+          tp=None):
     """Pre-norm V1 Swin block. x: (N, L, C). `drop` (mask1, mask2, rate):
-    drop_path on the attention and MLP residuals (training)."""
-    if fused_block_eligible(dim, heads, False, kernels, params["attn"]):
+    drop_path on the attention and MLP residuals (training). `tp`: an eval
+    forward over tensor-parallel shards (`parallel.tp`)."""
+    if fused_block_eligible(dim, heads, False, kernels, params["attn"], tp):
         x = fused_half_block(params, x, kind="v1", heads=heads, res=res, ws=ws, shift=shift)
         return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels)
     H, W = res
     attn_out = shifted_window_attention(
         lambda w, m, nw: window_attention_v1(params["attn"], w, num_heads=heads, ws=ws,
-                                             mask=m, nW=nw, kernels=kernels),
+                                             mask=m, nW=nw, kernels=kernels, tp=tp),
         layer_norm(params["norm1"], x), H=H, W=W, ws=ws, shift=shift)
     x = x + drop_residual(attn_out, drop, 0)
-    y = mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels)
+    y = mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels, tp=tp)
     return x + drop_residual(y, drop, 1)
 
 

@@ -16,17 +16,21 @@ audio adapters take `cfg.adapter`, the visual ones `cfg.adapter_vis` where
 the model has one (AVS, AVQA), else `cfg.adapter`. The
 blocks run unrolled, in order. In training the tower residuals (never the
 adapters') pass through drop_path, and each paired step and each plain
-visual block is checkpointed under a remat policy.
+visual block is checkpointed under a remat policy. An eval forward may
+pipeline a stage of repeated pairs over a `pipe` group (`pipeline`), as
+the JAX package's `set_pipeline` does process-wide.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..configs import AVEModelConfig, ave_adapter_dims, ave_paired_layout, vis_adapter_cfg
 from ..ops.basic import Init, drop_path_mask, drop_residual, layer_norm, mlp
+from ..parallel.pipeline import gpipe
 from . import adapter as A
 from . import htsat as H
 from . import swinv2 as S
@@ -94,35 +98,111 @@ def remat(fn, policy: str):
 
 
 def _paired_step(blk_params, blk_state, f_v, f_a, v_drop, a_drop, vmeta, ameta, cfg, *,
-                 kernels, int8_attn, gelu, train):
+                 kernels, int8_attn, gelu, train, group=None, tp=None):
     """One paired block: the four adapters around the Swin-V2 attention and
     MLP halves and the full HTS-AT block -> (f_v, f_a, a_maps, v_maps, new
     adapter states). `v_drop`/`a_drop`: (mask1, mask2, rate) of each tower's
-    drop_path, or None; the adapter residuals are never dropped."""
+    drop_path, or None; the adapter residuals are never dropped. `group`:
+    the data-parallel group of the adapters' BNs; `tp`: tensor parallelism."""
     vp, ap, ad = blk_params
     acfg, vcfg = cfg.adapter, vis_adapter_cfg(cfg)
+    kw = dict(kernels=kernels, train=train, group=group, tp=tp)
     new_st = {}
-    a_res, _, new_st["a_p1"] = A.adapter(ad["a_p1"], blk_state["a_p1"], f_a, f_v, acfg,
-                                         kernels=kernels, train=train)
-    v_res, _, new_st["v_p1"] = A.adapter(ad["v_p1"], blk_state["v_p1"], f_v, f_a, vcfg,
-                                         kernels=kernels, train=train)
-    f_v = S.attn_half(vp, f_v, vmeta, kernels=kernels, int8_attn=int8_attn, drop=v_drop) + v_res
+    a_res, _, new_st["a_p1"] = A.adapter(ad["a_p1"], blk_state["a_p1"], f_a, f_v, acfg, **kw)
+    v_res, _, new_st["v_p1"] = A.adapter(ad["v_p1"], blk_state["v_p1"], f_v, f_a, vcfg, **kw)
+    f_v = S.attn_half(vp, f_v, vmeta, kernels=kernels, int8_attn=int8_attn, drop=v_drop,
+                      tp=tp) + v_res
     f_a = H.block(ap, f_a, dim=ameta["dim"], heads=ameta["heads"], res=ameta["res"],
                   ws=ameta["ws"], shift=ameta["shift"], kernels=kernels, gelu=gelu,
-                  drop=a_drop) + a_res
+                  drop=a_drop, tp=tp) + a_res
     a_res, a_maps, new_st["a_p2"] = A.adapter(ad["a_p2"], blk_state["a_p2"], f_a, f_v, acfg,
-                                              kernels=kernels, train=train)
+                                              **kw)
     v_res, v_maps, new_st["v_p2"] = A.adapter(ad["v_p2"], blk_state["v_p2"], f_v, f_a, vcfg,
-                                              kernels=kernels, train=train)
-    y = mlp(vp["mlp"], f_v, gelu, kernels=kernels)
+                                              **kw)
+    y = mlp(vp["mlp"], f_v, gelu, kernels=kernels, tp=tp)
     f_v = f_v + drop_residual(layer_norm(vp["norm2"], y), v_drop, 1) + v_res
     return f_v, f_a + a_res, a_maps, v_maps, new_st
 
 
-def _plain_step(vp, f_v, v_drop, *, vmeta, kernels, int8_attn, gelu):
+def _plain_step(vp, f_v, v_drop, *, vmeta, kernels, int8_attn, gelu, tp=None):
     """An unpaired Swin-V2 block."""
     return S.block(vp, f_v, vmeta, kernels=kernels, int8_attn=int8_attn, gelu=gelu,
-                   drop=v_drop)
+                   drop=v_drop, tp=tp)
+
+
+SCAN_MIN_PAIRS = 2  # the JAX package's least number of pairs it stacks
+
+
+def detect_pairs(stage, vplan, aplan):
+    """A stage layout as PAIRS of repeated `(k-1 plain + 1 paired)` groups
+    whose static metas (all but dpr) agree pair to pair, stage 2's
+    `[None, None, b0] * 6` pattern (`dg_sct_tpu/models/interleave.py:130`):
+    a list of per-pair entry lists, or None. A pair, not a group, repeats
+    because the window shift alternates group to group; fewer than
+    SCAN_MIN_PAIRS pairs give None."""
+    groups, cur = [], []
+    for e in stage:
+        cur.append(e)
+        if e[2] is not None:
+            groups.append(cur)
+            cur = []
+    if cur or len(groups) < 2 or len(groups) % 2:
+        return None
+    k = len(groups[0])
+    if any(len(g) != k for g in groups):
+        return None
+    pairs = [groups[i] + groups[i + 1] for i in range(0, len(groups), 2)]
+    if len(pairs) < SCAN_MIN_PAIRS:
+        return None
+    same = lambda m1, m2: all(m1[kk] == m2[kk] for kk in m1 if kk != "dpr")
+    for p in range(2 * k):
+        for pair in pairs[1:]:
+            if not same(vplan[pair[p][0]], vplan[pairs[0][p][0]]):
+                return None
+            if pairs[0][p][2] is not None and not same(aplan[pair[p][1]],
+                                                       aplan[pairs[0][p][1]]):
+                return None
+    return pairs
+
+
+def _pipelined_stage(params, state, s_idx, pairs, f_v, f_a, vplan, aplan, cfg, pipeline, *,
+                     kernels, int8_attn, gelu):
+    """Eval: a stage's repeated pairs as GPipe stages over `pipeline` =
+    (pipe group, n_micro); the (batch x frames) rows stream through in
+    n_micro microbatches and the last pair's spatial maps ride the carry.
+    -> (f_v, f_a, a_maps, v_maps), the same on every rank of the group."""
+    group, n_micro = pipeline
+    n = f_v.shape[0]
+    if n % n_micro:
+        raise ValueError(f"batch*frames={n} not divisible by n_micro={n_micro}")
+    vblocks = params["swin"]["layers"][s_idx]["blocks"]
+    ablocks = params["htsat"]["layers"][s_idx]["blocks"]
+    metas = [(vplan[vb], None if ai is None else aplan[ab]) for vb, ab, ai in pairs[0]]
+    stages = [[{"v": vblocks[vb]} if ai is None else
+               {"v": vblocks[vb], "a": ablocks[ab],
+                "ad": {k: params["adapters"][k][ai] for k in ADKEYS},
+                "ast": {k: state["adapters"][k][ai] for k in ADKEYS}}
+               for vb, ab, ai in pair] for pair in pairs]
+
+    def pair_body(stage, carry):
+        fv, fa, am, vm = carry
+        for sp, (vmeta, ameta) in zip(stage, metas):
+            if ameta is None:
+                fv = _plain_step(sp["v"], fv, None, vmeta=vmeta, kernels=kernels,
+                                 int8_attn=int8_attn, gelu=gelu)
+            else:
+                fv, fa, am, vm, _ = _paired_step((sp["v"], sp["a"], sp["ad"]), sp["ast"], fv, fa,
+                                                 None, None, vmeta, ameta, cfg, kernels=kernels,
+                                                 int8_attn=int8_attn, gelu=gelu, train=False)
+        return [fv, fa, am, vm]
+
+    mb = n // n_micro
+    split = lambda x: x.reshape((n_micro, mb) + tuple(x.shape[1:]))
+    zeros = lambda tokens, x: torch.zeros((n_micro, mb, 1, tokens), dtype=x.dtype,
+                                          device=x.device)
+    mbs = [split(f_v), split(f_a), zeros(f_a.shape[1], f_a), zeros(f_v.shape[1], f_v)]
+    outs = gpipe(pair_body, stages, mbs, group)
+    return tuple(o.reshape((n,) + tuple(o.shape[2:])) for o in outs)
 
 
 def _drop_masks(gen, n, rate, device):
@@ -135,7 +215,7 @@ def _drop_masks(gen, n, rate, device):
 
 def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, int8_attn=False,
             gelu="exact", train=False, gen=None, mixup_lambda=None, remat_policy="full",
-            return_stage_taps=False):
+            return_stage_taps=False, group=None, tp=None, pipeline=None):
     """wave: (N, L) flattened clips; images: (N, H, W, 3) flattened frames.
     Returns ({"f_v" (N, 1, 1536), "f_a" (N, 1, 768), "vis_tokens" (N, 36,
     1536)}, new state). With `return_stage_taps` the outputs also hold
@@ -148,11 +228,21 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, i
     paired block, the audio ones, all drawn before the block runs; with
     `mixup_lambda` (N,), mixup of the log-mel maps. Each paired step and
     each plain visual block is checkpointed under `remat_policy`.
-    `int8_attn`: the quantized Swin-V2 blocks run the int8 attention core."""
+    `int8_attn`: the quantized Swin-V2 blocks run the int8 attention core.
+
+    Parallel modes: `group`, data parallelism in training (bn0 and the
+    adapters' BNs on the global batch's statistics, mixup's flip over it);
+    `tp`, an eval forward over tensor-parallel shards (`parallel.tp`);
+    `pipeline` = (pipe group, n_micro), an eval forward that runs each stage
+    of at least SCAN_MIN_PAIRS repeated pairs whose count the group's size
+    divides through GPipe (stage 2 at full width: 3 pairs), every other
+    stage on every rank; the outputs then hold "pipelined_stages", the
+    indices of the stages it pipelined."""
     device = wave.device
     f_v = S.patch_embed_tokens(params["swin"], images, cfg.swin)
     f_a, new_frontend_state = H.frontend(params["htsat"], state["htsat"], wave, cfg.htsat,
-                                         train=train, gen=gen, mixup_lambda=mixup_lambda)
+                                         train=train, gen=gen, mixup_lambda=mixup_lambda,
+                                         group=group)
     vis_plan = S.block_plan(cfg.swin)
     aud_plan = H.block_plan(cfg.htsat)
     new_adapter_state = {k: list(state["adapters"][k]) for k in ADKEYS}
@@ -160,16 +250,24 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, i
     tower_gen = gen if train else None
     wrap = (lambda fn: remat(fn, remat_policy)) if train else (lambda fn: fn)
     layout = ave_paired_layout(cfg.swin, cfg.htsat)
-    stage_taps = []
+    stage_taps, pipelined = [], []
 
     for s_idx, stage in enumerate(layout):
+        if pipeline is not None and not train:
+            pairs = detect_pairs(stage, vis_plan[s_idx], aud_plan[s_idx])
+            if pairs is not None and len(pairs) % dist.get_world_size(pipeline[0]) == 0:
+                f_v, f_a, a_maps, v_maps = _pipelined_stage(
+                    params, state, s_idx, pairs, f_v, f_a, vis_plan[s_idx], aud_plan[s_idx], cfg,
+                    pipeline, kernels=kernels, int8_attn=int8_attn, gelu=gelu)
+                pipelined.append(s_idx)
+                stage = []
         for (vb, ab, ai) in stage:
             vp = params["swin"]["layers"][s_idx]["blocks"][vb]
             vmeta = vis_plan[s_idx][vb]
             v_drop = _drop_masks(tower_gen, f_v.shape[0], vmeta["dpr"], device)
             if ai is None:
                 step = wrap(functools.partial(_plain_step, vmeta=vmeta, kernels=kernels,
-                                              int8_attn=int8_attn, gelu=gelu))
+                                              int8_attn=int8_attn, gelu=gelu, tp=tp))
                 f_v = step(vp, f_v, v_drop)
                 continue
             ap = params["htsat"]["layers"][s_idx]["blocks"][ab]
@@ -179,7 +277,7 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, i
             blk_state = {k: state["adapters"][k][ai] for k in ADKEYS}
             step = wrap(functools.partial(_paired_step, vmeta=vmeta, ameta=ameta, cfg=cfg,
                                           kernels=kernels, int8_attn=int8_attn, gelu=gelu,
-                                          train=train))
+                                          train=train, group=group, tp=tp))
             f_v, f_a, a_maps, v_maps, new_st = step(blk_params, blk_state, f_v, f_a, v_drop,
                                                     a_drop)
             for k in ADKEYS:
@@ -204,4 +302,6 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, kernels=True, i
     out = {"f_v": f_v, "f_a": f_a, "vis_tokens": vis_tokens}
     if return_stage_taps:
         out["stage_taps"] = stage_taps
+    if pipeline is not None:
+        out["pipelined_stages"] = tuple(pipelined)
     return out, new_state

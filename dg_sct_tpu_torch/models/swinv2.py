@@ -54,35 +54,37 @@ def block_plan(cfg: SwinV2Config):
     return plan
 
 
-def attn_part(params, x, meta, *, kernels=True, int8_attn=False):
+def attn_part(params, x, meta, *, kernels=True, int8_attn=False, tp=None):
     """The spatial-attention half of a block before norm1 and the residual
-    (timm's `blk._attn(x)`, which the interleave drives). x: (N, L, C)."""
+    (timm's `blk._attn(x)`, which the interleave drives). x: (N, L, C).
+    `tp`: tensor parallelism over this rank's heads (`parallel.tp`)."""
     H, W = meta["res"]
     return shifted_window_attention(
         lambda w, m, nw: window_attention_v2(params["attn"], w, num_heads=meta["heads"],
                                              ws=meta["ws"], mask=m, nW=nw,
                                              pretrained_ws=meta["pretrained_ws"],
-                                             kernels=kernels, int8_attn=int8_attn),
+                                             kernels=kernels, int8_attn=int8_attn, tp=tp),
         x, H=H, W=W, ws=meta["ws"], shift=meta["shift"])
 
 
-def attn_half(params, x, meta, *, kernels=True, int8_attn=False, drop=None):
+def attn_half(params, x, meta, *, kernels=True, int8_attn=False, drop=None, tp=None):
     """x + norm1(attn(x)): K2 where it applies, else the plain composition,
     whose residual goes through drop_path with `drop` (mask1, mask2, rate)."""
     if drop is None and fused_block_eligible(meta["dim"], meta["heads"], False, kernels,
-                                             params["attn"]):
+                                             params["attn"], tp):
         return fused_half_block(params, x, kind="v2", heads=meta["heads"], res=meta["res"],
                                 ws=meta["ws"], shift=meta["shift"],
                                 pretrained_ws=meta["pretrained_ws"])
-    attn = attn_part(params, x, meta, kernels=kernels, int8_attn=int8_attn)
+    attn = attn_part(params, x, meta, kernels=kernels, int8_attn=int8_attn, tp=tp)
     return x + drop_residual(layer_norm(params["norm1"], attn), drop, 0)
 
 
-def block(params, x, meta, *, kernels=True, int8_attn=False, gelu="exact", drop=None):
+def block(params, x, meta, *, kernels=True, int8_attn=False, gelu="exact", drop=None, tp=None):
     """Post-norm V2 block: x += norm1(attn(x)); x += norm2(mlp(x)). `drop`
-    (mask1, mask2, rate): drop_path on the two residuals (training)."""
-    x = attn_half(params, x, meta, kernels=kernels, int8_attn=int8_attn, drop=drop)
-    y = mlp(params["mlp"], x, gelu, kernels=kernels)
+    (mask1, mask2, rate): drop_path on the two residuals (training). `tp`:
+    an eval forward over tensor-parallel shards (`parallel.tp`)."""
+    x = attn_half(params, x, meta, kernels=kernels, int8_attn=int8_attn, drop=drop, tp=tp)
+    y = mlp(params["mlp"], x, gelu, kernels=kernels, tp=tp)
     return x + drop_residual(layer_norm(params["norm2"], y), drop, 1)
 
 

@@ -27,11 +27,12 @@ def init_tpavi(init: Init, in_channels):
     return params, {"bn": bn_s}
 
 
-def tpavi(params, state, x, audio=None, *, train=False):
+def tpavi(params, state, x, audio=None, *, train=False, group=None):
     """x (B, T, H, W, C); audio (B, T, C/2), or None for video self-attention.
     Returns (z (B, T, H, W, C), the aligned audio (B, T, C) or None, new
     state). f = theta(x) phi(kv)^T / THW in float32 (JAX's
-    `preferred_element_type`), cast to x's type before y = f g(x)."""
+    `preferred_element_type`), cast to x's type before y = f g(x). `group`:
+    data parallelism, the BN's training statistics over the global batch."""
     B, T, H, W, C = x.shape
     thw = T * H * W
     audio_aligned = None
@@ -49,6 +50,6 @@ def tpavi(params, state, x, audio=None, *, train=False):
     f = torch.bmm(theta_x.float(), phi_x.float().transpose(1, 2)) / thw
     y = torch.bmm(f.to(x.dtype), g_x).reshape(B, T, H, W, -1)
     w_y, bn_state = batch_norm(params["bn"], state["bn"], linear(params["W_z"], y),
-                               train=train, axis=-1)
+                               train=train, axis=-1, group=group)
     z = layer_norm(params["norm_layer"], w_y + x)
     return z, audio_aligned, {"bn": bn_state}

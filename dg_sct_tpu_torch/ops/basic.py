@@ -13,7 +13,9 @@ import torch
 import torch.nn.functional as F
 
 from ..device import constant, resolve_device
+from ..parallel.comm import all_reduce_sum
 from . import dsp
+from .draws import draw
 
 
 # ---------------------------------------------------------------------------
@@ -159,26 +161,47 @@ def gelu(x, mode: str = "exact"):
     return F.gelu(x, approximate="tanh" if mode == "tanh" else "none")
 
 
-def mlp(params, x, gelu_mode: str = "exact", *, kernels=True):
+def mlp(params, x, gelu_mode: str = "exact", *, kernels=True, tp=None):
+    """fc1, GELU, fc2. With `tp` (a `parallel.tp.TensorParallel`) the
+    params are this rank's shards, fc1 split by columns and fc2 by rows: the
+    partial sums meet in one all-reduce, and fc2's bias is added once after
+    it."""
     h = gelu(linear(params["fc1"], x, kernels=kernels), gelu_mode)
-    return linear(params["fc2"], h, kernels=kernels)
+    if tp is None:
+        return linear(params["fc2"], h, kernels=kernels)
+    return tp.row_parallel(params["fc2"], h, kernels=kernels)
 
 
-def batch_norm(params, state, x, *, train=False, axis=-1, momentum=0.1, eps=1e-5):
+def batch_norm(params, state, x, *, train=False, axis=-1, momentum=0.1, eps=1e-5, group=None):
     """BatchNorm over every axis but `axis` -> (y, new_state). Eval
     normalizes with the running stats and returns `state`. Train normalizes
     with the batch's biased variance and returns new running stats (the
     unbiased variance, momentum `momentum`, `count` + 1) as new tensors
     without a graph: nothing is written in place, so a recompute under
     checkpointing cannot apply an update twice. y keeps x's type (float32
-    running stats do not promote a bfloat16 stream)."""
+    running stats do not promote a bfloat16 stream).
+
+    With `group` (data parallelism) the training statistics are the global
+    batch's, as XLA computes them over a sharded batch: the sum, then the
+    sum of squared deviations from the global mean, each in float64 (as the
+    CPU's `var_mean` accumulates) and all-reduced over `group`
+    (differentiable, so the gradients see the global statistics too), and
+    the unbiased variance takes the global count."""
     ax = axis % x.ndim
     shape = [1] * x.ndim
     shape[ax] = x.shape[ax]
     if train:
         dims = tuple(i for i in range(x.ndim) if i != ax)
-        var, mu = torch.var_mean(x, dim=dims, correction=0)
         n = x.numel() // x.shape[ax]
+        if group is None:
+            var, mu = torch.var_mean(x, dim=dims, correction=0)
+        else:
+            n *= torch.distributed.get_world_size(group)
+            x64 = x.to(torch.float64)
+            mu64 = all_reduce_sum(x64.sum(dims), group) / n
+            var = (all_reduce_sum((x64 - mu64.reshape(shape)).square().sum(dims), group)
+                   / n).to(x.dtype)
+            mu = mu64.to(x.dtype)
         with torch.no_grad():
             new_state = {
                 "mean": (1 - momentum) * state["mean"] + momentum * mu,
@@ -308,9 +331,10 @@ def merge_2x2(x, res):
 # recompute never redraws) and a test can apply the JAX package's masks
 # ---------------------------------------------------------------------------
 
-def keep_mask(gen, shape, rate, device):
+def keep_mask(gen, shape, rate, device, batch_axis=0):
     """Bernoulli(1 - rate) keep mask of `shape` drawn from `gen`."""
-    return torch.rand(shape, generator=gen, device=device) < (1.0 - rate)
+    u = draw(gen, lambda s, g: torch.rand(s, generator=g, device=device), shape, batch_axis)
+    return u < (1.0 - rate)
 
 
 def apply_keep_mask(x, mask, rate):
@@ -319,11 +343,12 @@ def apply_keep_mask(x, mask, rate):
     return torch.where(mask, x / (1.0 - rate), 0.0)
 
 
-def dropout(gen, x, rate, train):
-    """Elementwise dropout; the identity unless training with a nonzero rate."""
+def dropout(gen, x, rate, train, batch_axis=0):
+    """Elementwise dropout; the identity unless training with a nonzero rate.
+    `batch_axis`: x's batch axis, along which a `RowShard` keeps its rows."""
     if not train or rate == 0.0:
         return x
-    return apply_keep_mask(x, keep_mask(gen, x.shape, rate, x.device), rate)
+    return apply_keep_mask(x, keep_mask(gen, x.shape, rate, x.device, batch_axis), rate)
 
 
 def drop_path_rates(depths, rate):

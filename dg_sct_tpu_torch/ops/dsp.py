@@ -16,6 +16,8 @@ import torch.nn.functional as F
 
 from ..configs import AudioFrontendConfig
 from ..device import constant
+from ..parallel.comm import gather_rows, rank_and_size
+from .draws import draw
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +132,8 @@ def resize_2d(x, out_h: int, out_w: int, *, kernel: str = "cubic", align_corners
 
 
 def power_spectrogram(wave, cfg: AudioFrontendConfig, compute_dtype=None):
-    """(N, L) -> (N, T, n_fft//2+1) float32 power spectrogram |STFT|^2.
+    """(N, L) -> (N, T, n_fft//2+1) power spectrogram |STFT|^2, float32
+    (float64 for a float64 wave).
 
     Reflect pad, framing as ceil(n_fft/hop) strided views of the
     hop-chunked signal, then ONE GEMM against the windowed DFT basis.
@@ -138,7 +141,8 @@ def power_spectrogram(wave, cfg: AudioFrontendConfig, compute_dtype=None):
     type; the products and their sum stay float32 in both cases."""
     n_fft, hop = cfg.n_fft, cfg.hop_size
     pad = n_fft // 2
-    x = F.pad(wave.to(torch.float32)[:, None], (pad, pad), mode="reflect")[:, 0]
+    dtype = torch.promote_types(wave.dtype, torch.float32)
+    x = F.pad(wave.to(dtype)[:, None], (pad, pad), mode="reflect")[:, 0]
     N, Lp = x.shape
     T = wave.shape[1] // hop + 1
     k = -(-n_fft // hop)
@@ -148,10 +152,10 @@ def power_spectrogram(wave, cfg: AudioFrontendConfig, compute_dtype=None):
     chunks = x[:, :need].reshape(N, T + k - 1, hop)
     frames = torch.stack([chunks[:, j:j + T] for j in range(k)], dim=2)
     frames = frames.reshape(N, T, k * hop)[..., :n_fft]
-    basis = constant(stft_basis, n_fft, device=wave.device)
+    basis = constant(stft_basis, n_fft, device=wave.device, dtype=dtype)
     if compute_dtype is not None:
-        frames = frames.to(compute_dtype).to(torch.float32)
-        basis = basis.to(compute_dtype).to(torch.float32)
+        frames = frames.to(compute_dtype).to(dtype)
+        basis = basis.to(compute_dtype).to(dtype)
     y = frames @ basis
     Fb = n_fft // 2 + 1
     re, im = y[..., :Fb], y[..., Fb:]
@@ -161,15 +165,15 @@ def power_spectrogram(wave, cfg: AudioFrontendConfig, compute_dtype=None):
 def logmel(power, cfg: AudioFrontendConfig):
     """(N, T, F) power -> (N, T, mel) log-mel dB (ref 1, top_db None)."""
     bank = constant(mel_filterbank, cfg.sample_rate, cfg.n_fft, cfg.mel_bins, cfg.fmin,
-                    cfg.fmax, device=power.device)
+                    cfg.fmax, device=power.device, dtype=power.dtype)
     return 10.0 * torch.log10(torch.clamp(power @ bank, min=cfg.amin))
 
 
 def _stripes(gen, n, total, width, num, device):
     """(n, total) keep mask with `num` zero stripes a row: width w uniform in
     [0, width), start floor(u * (total - w)) with u uniform in [0, 1)."""
-    w = torch.randint(0, width, (n, num), generator=gen, device=device)
-    u = torch.rand((n, num), generator=gen, device=device)
+    w = draw(gen, lambda s, g: torch.randint(0, width, s, generator=g, device=device), (n, num))
+    u = draw(gen, lambda s, g: torch.rand(s, generator=g, device=device), (n, num))
     bgn = (u * (total - w)).to(torch.int64)
     pos = torch.arange(total, device=device)[None, None]
     hit = (pos >= bgn[..., None]) & (pos < (bgn + w)[..., None])
@@ -196,10 +200,19 @@ def spec_augment(gen, x, cfg: AudioFrontendConfig):
     return apply_spec_masks(x, *spec_augment_masks(gen, N, T, Fm, cfg, x.device))
 
 
-def do_mixup(x, lam):
-    """Mixup of x (N, ...) against the batch-flipped x with (N,) weights."""
+def do_mixup(x, lam, group=None):
+    """Mixup of x (N, ...) against the batch-flipped x with (N,) weights.
+    With `group` (data parallelism) x and lam are this rank's rows of the
+    global batch, which is flipped as a whole: the rows come from the rank
+    that holds their mirror."""
     lam = lam.reshape((x.shape[0],) + (1,) * (x.ndim - 1)).to(x.dtype)
-    return x * lam + torch.flip(x, dims=(0,)) * (1.0 - lam)
+    if group is None:
+        flipped = torch.flip(x, dims=(0,))
+    else:
+        rank, _ = rank_and_size(group)
+        n = x.shape[0]
+        flipped = torch.flip(gather_rows(x, group), dims=(0,)).narrow(0, rank * n, n)
+    return x * lam + flipped * (1.0 - lam)
 
 
 def reshape_wav2img(x, cfg: AudioFrontendConfig):
@@ -226,7 +239,8 @@ def crop_mel(x, positions, crop_size: int):
 def crop_positions(gen, n: int, T: int, crop_size: int, device):
     """The training crop's (n,) start frames, uniform in [0, T - crop_size),
     drawn from `gen`."""
-    return torch.randint(0, T - crop_size, (n,), generator=gen, device=device)
+    return draw(gen, lambda s, g: torch.randint(0, T - crop_size, s, generator=g, device=device),
+                (n,))
 
 
 def long_clip_eval_positions(T: int):

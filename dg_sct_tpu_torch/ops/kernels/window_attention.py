@@ -19,15 +19,18 @@ MAX_HEAD_DIM = 32    # four 8-column output tiles; a multiple of 8 (16-byte rows
 
 
 def window_attention_plain(q, k, v, bias, mask=None, *, nW=1):
-    """The kernel's arithmetic in PyTorch: (Bw, N, H, D) -> (Bw, N, H, D)."""
+    """The kernel's arithmetic in PyTorch: (Bw, N, H, D) -> (Bw, N, H, D),
+    accumulating in float32 (float64 for float64 inputs, which no kernel
+    takes)."""
     Bw, N, H, D = q.shape
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) + bias.float()[None]
+    f = lambda t: t.to(torch.promote_types(q.dtype, torch.float32))
+    s = torch.einsum("bnhd,bmhd->bhnm", f(q), f(k)) + f(bias)[None]
     if mask is not None:
         nW = mask.shape[0]
-        s = (s.reshape(Bw // nW, nW, H, N, N) + mask.float()[None, :, None]).reshape(Bw, H, N, N)
+        s = (s.reshape(Bw // nW, nW, H, N, N) + f(mask)[None, :, None]).reshape(Bw, H, N, N)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(q.dtype)
-    return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(q.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", f(p), f(v)).to(q.dtype)
 
 
 def window_attention(q, k, v, bias, mask=None, *, nW=1):

@@ -28,7 +28,8 @@ def mha(params, query, key, value, *, num_heads, gen=None, dropout_rate=0.0, tra
     k = (key @ wk + bk).transpose(0, 1).reshape(B, Tk, num_heads, hd)
     v = (value @ wv + bv).transpose(0, 1).reshape(B, Tk, num_heads, hd)
     attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
-    attn = torch.softmax(attn.float(), dim=-1).to(query.dtype)
+    attn = torch.softmax(attn.to(torch.promote_types(attn.dtype, torch.float32)),
+                         dim=-1).to(query.dtype)
     if gen is not None:
         attn = dropout(gen, attn, dropout_rate, train)
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Tq, E)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..device import constant
+from ..parallel.tp import project, split_heads
 from .basic import Init, linear, linear_init
 from .kernels.block_attention import fused_attn_half_block
 from .kernels.window_attention import window_attention, window_attention_plain
@@ -143,16 +144,18 @@ def _v1_bias(params, ws, heads):
     return params["rpb_table"][idx].reshape(N, N, heads).permute(2, 0, 1)
 
 
-def window_attention_v1(params, x, *, num_heads, ws, mask=None, nW=1, kernels=True):
-    """x: (Bw, N, C) windows -> (Bw, N, C)."""
+def window_attention_v1(params, x, *, num_heads, ws, mask=None, nW=1, kernels=True, tp=None):
+    """x: (Bw, N, C) windows -> (Bw, N, C). With `tp` and a split qkv, on
+    this rank's heads (`parallel.tp`)."""
     Bw, N, C = x.shape
     hd = C // num_heads
+    params, num_heads = split_heads(tp, params, num_heads, C)
     qkv = linear(params["qkv"], x, kernels=kernels).reshape(Bw, N, 3, num_heads, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q = q * hd ** -0.5
     out = _attn_core(q, k, v, _v1_bias(params, ws, num_heads), mask, x.dtype, nW,
                      kernels=kernels)
-    return linear(params["proj"], out, kernels=kernels)
+    return project(tp, params["proj"], out, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -185,11 +188,13 @@ def _v2_qkv_bias(params):
 
 
 def window_attention_v2(params, x, *, num_heads, ws, mask=None, pretrained_ws=0, nW=1,
-                        kernels=True, int8_attn=False):
+                        kernels=True, int8_attn=False, tp=None):
     """Scaled-cosine window attention with the log-CPB bias. x: (Bw, N, C).
-    With `int8_attn` and a quantized qkv, the core runs in int8."""
+    With `int8_attn` and a quantized qkv, the core runs in int8. With `tp`
+    and a split qkv, on this rank's heads (`parallel.tp`)."""
     Bw, N, C = x.shape
     hd = C // num_heads
+    params, num_heads = split_heads(tp, params, num_heads, C)
     qkv = linear(params["qkv"], x, kernels=kernels) + _v2_qkv_bias(params)
     qkv = qkv.reshape(Bw, N, 3, num_heads, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -202,7 +207,7 @@ def window_attention_v2(params, x, *, num_heads, ws, mask=None, pretrained_ws=0,
     else:
         qn = qn * logit_scale[:, 0, 0][None, None, :, None].to(qn.dtype)
         out = _attn_core(qn, kn, v, bias, mask, x.dtype, nW, kernels=kernels)
-    return linear(params["proj"], out, kernels=kernels)
+    return project(tp, params["proj"], out, kernels=kernels)
 
 
 def shifted_window_attention(attn_fn, x, *, H, W, ws, shift):
@@ -225,13 +230,15 @@ def shifted_window_attention(attn_fn, x, *, H, W, ws, shift):
 # eval attention half-block: K2 or its plain version
 # ---------------------------------------------------------------------------
 
-def fused_block_eligible(C: int, heads: int, train: bool, kernels: bool, attn) -> bool:
+def fused_block_eligible(C: int, heads: int, train: bool, kernels: bool, attn, tp=None) -> bool:
     """K2 takes the eval blocks with C <= 768, the rule of the JAX package
     (`dg_sct_tpu/ops/windows.py:337`), so both packages take the same path;
     and only if the block's `attn` params hold an unquantized qkv and proj:
     the JAX package's K2 cannot take an int8 proj, so its int8 serving runs
-    such blocks on the plain path, and so does the port."""
-    return (kernels and not train and C <= 768 and C % heads == 0
+    such blocks on the plain path, and so does the port. Never under tensor
+    parallelism (`tp`): K2 adds the residual after proj, before the
+    all-reduce of proj's partial sums could."""
+    return (tp is None and kernels and not train and C <= 768 and C % heads == 0
             and "kernel" in attn["qkv"] and "kernel" in attn["proj"])
 
 

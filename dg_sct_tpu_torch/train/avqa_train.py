@@ -17,6 +17,8 @@ import torch
 from ..configs import AVQAModelConfig
 from ..device import resolve_device
 from ..models import avqa
+from ..parallel.comm import mean_over
+from ..parallel.mesh import shard_generator
 from . import losses
 from .ave_train import make_optimizer, merge_params, partition_params  # noqa: F401  (shared)
 from .ave_train import update_step
@@ -39,7 +41,7 @@ def avqa_loss(out, answer):
 
 
 def make_train_step(cfg: AVQAModelConfig, opt: AccumulatedAdam, *, device=None,
-                    remat_policy: str = "full"):
+                    remat_policy: str = "full", group=None):
     """train_step(trainable, frozen, state, opt_state, batch, gen=None) ->
     (trainable, new state, opt_state, {"loss", "qa_acc"}). `batch` holds
     wave (B, T, L), visual_posi and visual_nega (B, T, H, W, 3), question
@@ -47,7 +49,8 @@ def make_train_step(cfg: AVQAModelConfig, opt: AccumulatedAdam, *, device=None,
     torch.Generator on `device` (None: the card), draws SpecAugment,
     drop_path and the heads' dropout, and None turns them off. The negative
     frames run the frozen Swin-V2 alone without gradients (K1 and K2 on the
-    card). Nothing passed in is changed."""
+    card). Nothing passed in is changed. `group`: data parallelism, as
+    `ave_train.make_train_step` takes it."""
     device = resolve_device(device)
 
     def train_step(trainable, frozen, state, opt_state, batch, gen=None):
@@ -56,14 +59,17 @@ def make_train_step(cfg: AVQAModelConfig, opt: AccumulatedAdam, *, device=None,
         def loss_fn(params):
             out, new_state = avqa.forward(params, state, batch["wave"], batch["visual_posi"],
                                           batch["visual_nega"], batch["question"], cfg,
-                                          train=True, device=device, gen=gen,
+                                          train=True, device=device,
+                                          gen=shard_generator(gen, group),
                                           mixup_lambda=batch.get("mixup_lambda"),
-                                          remat_policy=remat_policy)
+                                          remat_policy=remat_policy, group=group)
             return avqa_loss(out, answer), (out["out_qa"].detach(), new_state)
 
         trainable, opt_state, loss, (qa, new_state) = update_step(opt, trainable, frozen,
-                                                                  opt_state, loss_fn)
+                                                                  opt_state, loss_fn, group)
         acc = (qa.argmax(-1) == answer).float().mean()
+        if group is not None:
+            acc = mean_over(acc, group)
         return trainable, new_state, opt_state, {"loss": loss, "qa_acc": acc}
 
     return train_step

@@ -16,6 +16,7 @@ import torch
 from ..configs import AVSModelConfig
 from ..device import resolve_device
 from ..models import avs
+from ..parallel.mesh import shard_generator
 from .ave_train import make_optimizer, merge_params, partition_params  # noqa: F401  (shared)
 from .ave_train import update_step
 from .optim import AccumulatedAdam
@@ -114,14 +115,15 @@ TASKS = ("s4", "ms3")
 
 
 def make_train_step(cfg: AVSModelConfig, opt: AccumulatedAdam, *, task: str = "s4",
-                    device=None, remat_policy: str = "full"):
+                    device=None, remat_policy: str = "full", group=None):
     """train_step(trainable, frozen, state, opt_state, batch, gen=None) ->
     (trainable, new state, opt_state, {"loss"}). `batch` holds image (B, T,
     H, W, 3), wave (B, T, L), mask (S4: (B, H, W, 1), the first frame; MS3:
     (B*T, H, W, 1)) and optionally mixup_lambda (B*T,); `gen`, a
     torch.Generator on `device` (None: the card), draws SpecAugment,
     drop_path and the head's dropout, and None turns them off. Nothing
-    passed in is changed."""
+    passed in is changed. `group`: data parallelism, as
+    `ave_train.make_train_step` takes it."""
     if task not in TASKS:
         raise ValueError(f"task {task!r} not in {TASKS}")
     device = resolve_device(device)
@@ -131,9 +133,10 @@ def make_train_step(cfg: AVSModelConfig, opt: AccumulatedAdam, *, task: str = "s
 
         def loss_fn(params):
             out, new_state = avs.forward(params, state, batch["image"], batch["wave"], cfg,
-                                         train=True, device=device, gen=gen,
+                                         train=True, device=device,
+                                         gen=shard_generator(gen, group),
                                          mixup_lambda=batch.get("mixup_lambda"),
-                                         remat_policy=remat_policy)
+                                         remat_policy=remat_policy, group=group)
             loss = (f1_iou_bce_loss(out["pred"], mask, cfg.num_frames) if task == "s4"
                     else ms3_loss(out, mask))
             return loss, new_state
@@ -141,7 +144,7 @@ def make_train_step(cfg: AVSModelConfig, opt: AccumulatedAdam, *, task: str = "s
         # the leaves the forward never reads (the head's decoders, path4's skip
         # unit, the AVS adapters' ln_before and token_resample) take zero gradients
         trainable, opt_state, loss, new_state = update_step(opt, trainable, frozen, opt_state,
-                                                            loss_fn)
+                                                            loss_fn, group)
         return trainable, new_state, opt_state, {"loss": loss}
 
     return train_step

@@ -61,8 +61,8 @@ def ave_labels(gt):
 
 def ave_loss(outputs, gt):
     """The reference's composite AVE loss; the logits are reduced in
-    float32 whatever the compute type."""
-    out = {k: v.float() for k, v in outputs.items()}
+    float32 whatever the compute type (float64 for float64 logits)."""
+    out = {k: v.to(torch.promote_types(v.dtype, torch.float32)) for k, v in outputs.items()}
     labels_bce, labels_event = ave_labels(torch.as_tensor(gt, device=out["event_scores"].device))
     return (bce_with_logits(out["is_event_scores"], labels_bce)
             + bce_with_logits(out["av_gate"], labels_bce)
