@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); TF32 off for matmul and cuDNN;
-  2. build the four CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the kernels from the four sources of csrc/ (one nvcc per source, in
+     parallel);
   3. hold each kernel against its plain PyTorch version at every shape of the
      main path, in float32 and bfloat16, and time kernel, plain version and
      the yardsticks the port never calls: for K1 `scaled_dot_product_attention`
@@ -14,7 +15,11 @@ Phases, each fatal on failure:
      for K4 (the int8 linear, at the 56 (rows, K, N) of one B=2 int8 forward,
      static scales, and dynamic ones checked too) the quantize / `torch._int_mm`
      / dequantize composition (composed_ms) and a bf16 addmm of the same shape
-     (matmul_ms). Times as the host issues the calls (ms) and, for kernel and
+     (matmul_ms); K4's two kernels, its quantize pass (`int8_quantize`, also
+     timed alone) and its int8 GEMM (checked alone on the plain quantize's
+     output), are held exact (error 0), static and dynamic, and `k4:` lines
+     give each shape's times, then `k4 sums:` one forward's. Times as the
+     host issues the calls (ms) and, for kernel and
      yardsticks, the card's time alone (device_ms). The float32 checks of K1
      and K2 run after a launch that leaves NaN in shared memory. K3 also at
      shapes off the main path: ragged row tiles, no LN_before, four groups of
@@ -59,12 +64,13 @@ Phases, each fatal on failure:
      requests of B=2 clips in bf16 in turns with a bf16 engine on the same
      weights and requests: clips/s of both, each engine's weight bytes
      and a request's peak memory above what was resident, launches
-     K1/K2/K3/K4 = 34/2/48/430 per forward, drift against bf16 (max |delta
+     K1/K2/K3/K4 = 34/2/48/430 per forward (and 430 quantize launches),
+     drift against bf16 (max |delta
      event_scores| over the spread, share of segment_preds that agree), one
      profiled int8 forward (K4 its own group); in float32, the int8 forward
      with kernels against the int8 plain forward (INT8_TOL, per output) and
      each of its 430 K4 calls against the plain version on its own input
-     (TOL); then one
+     (exact); then one
      forward each of towers only (K4 = 142), dynamic scales and int8_attn
      (K1 = 10), with launch counts and finite outputs checked;
   8. serve the AVS model at full width (AVSModelConfig(): the same towers,
@@ -274,7 +280,10 @@ Phases, each fatal on failure:
      (finite losses), sequence-parallel eval over data 1 x seq 2 (K1/K2/K3
      = 2/34/48 a rank) and tensor-parallel eval over data 1 x model 2
      (36/0/0 a rank, each rank's tower bytes against one process's); a
-     3-rank world pipelines stage 2's three pairs in PIPE_MICRO
+     4-rank world runs tensor-parallel eval over data 1 x model 4 (34/2/48 a
+     rank: Swin stage 0's 6 heads and the adapters' 2 groups stay whole on
+     every rank and take K2 and K3 as in one process); a 3-rank world
+     pipelines stage 2's three pairs in PIPE_MICRO
      microbatches (2/42/56 a rank); each eval, in bf16 and in float32,
      against the one-process forward of its dtype on event_scores and the
      per-frame is_event_scores (float32 within PAR_F32_TOL, bf16 within
@@ -337,7 +346,7 @@ MODEL_TOL = (2e-3, 2e-3)  # f32 kernel forward vs f32 plain forward (atol, rtol)
 BATCH = 2
 REQUESTS = 3
 PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48,
-               "int8_linear": 0}
+               "int8_linear": 0, "int8_quantize": 0}
 SOURCES = {
     "window_attention": ("dg_sct_tpu_torch/csrc/window_attention.cu",
                          "dg_sct_tpu/ops/pallas/window_attention.py:73"),
@@ -347,7 +356,11 @@ SOURCES = {
                            "dg_sct_tpu/ops/pallas/adapter_bottleneck.py:66"),
     "int8_linear": ("dg_sct_tpu_torch/csrc/int8_linear.cu",
                     "dg_sct_tpu/ops/quant.py:52 linear_int8 (an XLA int8 dot, no pallas_call)"),
+    "int8_quantize": ("dg_sct_tpu_torch/csrc/int8_linear.cu",
+                      "dg_sct_tpu/ops/quant.py:71 linear_int8's activation quantize (XLA "
+                      "elementwise ops, no pallas_call)"),
 }
+INT8_NAMES = ("int8_linear", "int8_quantize")  # K4's two kernels: held exact, checked together
 
 
 def card_line() -> str:
@@ -471,10 +484,11 @@ def kernel_cases(cfg):
         for C, N in ((v_dim, v_tok), (a_dim, a_tok)):
             key = (frames * N, C, 2, C // 16, True)  # (rows, C, groups, go, has_ln1)
             k3[key] = k3.get(key, 0) + 2
+    k4 = sorted(int8_call_shapes(cfg).items())
     return ([("window_attention", k, n) for k, n in k1.items()]
             + [("block_attention", k, n) for k, n in k2.items()]
             + [("adapter_bottleneck", k, n) for k, n in k3.items()]
-            + [("int8_linear", k, n) for k, n in sorted(int8_call_shapes(cfg).items())])
+            + [(name, k, n) for k, n in k4 for name in INT8_NAMES])
 
 
 def avqa_k3_cases():
@@ -610,6 +624,17 @@ def int8_inputs(key, dtype, gen):
     return x, q["kernel_q"], q["kscale"], ascale, bias
 
 
+def exact_err(got, ref, what):
+    """Max |got - ref| over a tensor or a tuple of them; raises unless it is 0
+    (K4's kernels repeat their plain versions' arithmetic exactly)."""
+    pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+    err = max(torch.nan_to_num((g.double() - r.double()).abs(), nan=math.inf).max().item()
+              for g, r in pairs)
+    if err != 0:
+        raise AssertionError(f"{what}: max abs error {err:.3e}, expected 0")
+    return err
+
+
 def composed_int8_linear(x, wq, kscale, ascale, bias):
     """K4's function as library calls: the quantize in PyTorch, `torch._int_mm`
     (int8 x int8 -> int32), the dequantize and bias in PyTorch. A yardstick
@@ -619,17 +644,22 @@ def composed_int8_linear(x, wq, kscale, ascale, bias):
 
 
 def check_int8_dynamic(key, dtype, gen):
-    """K4 with dynamic per-row scales against its plain version; max abs error."""
+    """K4 with dynamic per-row scales, its quantize kernel with static and
+    dynamic scales, and its GEMM kernel alone on the plain quantize's
+    output, each against its plain version: max abs error, which must be 0."""
     from dg_sct_tpu_torch.ops.kernels import int8_linear as K4
 
-    x, wq, kscale, _, bias = int8_inputs(key, dtype, gen)
-    got, ref = K4.int8_linear(x, wq, kscale, None, bias), K4.linear_int8_plain(x, wq, kscale,
-                                                                              None, bias)
-    torch.cuda.synchronize()
-    err, worst = compare(got, ref, dtype)
-    if worst > 1.0:
-        raise AssertionError(f"int8_linear dynamic {key} {dtype}: max error {err:.3e} exceeds "
-                             f"atol/rtol {TOL[dtype]}")
+    x, wq, kscale, ascale, bias = int8_inputs(key, dtype, gen)
+    what = f"int8_linear dynamic {key} {dtype}"
+    err = exact_err(K4.int8_linear(x, wq, kscale, None, bias),
+                    K4.linear_int8_plain(x, wq, kscale, None, bias), what)
+    for a in (None, ascale):
+        mode = "dynamic" if a is None else "static"
+        parts = K4.quantize_rows_plain(x, a)
+        err = max(err, exact_err(K4.quantize_rows(x, a), parts, f"int8_quantize {mode} {key}"),
+                  exact_err(K4.int8_gemm(*parts, wq, kscale, bias, dtype),
+                            K4.int8_gemm_plain(*parts, wq, kscale, bias, dtype),
+                            f"int8_gemm alone {mode} {key} {dtype}"))
     return err
 
 
@@ -705,6 +735,11 @@ def run_case(name, key, dtype, gen):
         nbytes = it * rows * K + K * N + 4 * N + 4 + it * N + it * rows * N
         return (lambda: K4.int8_linear(*args), lambda: K4.linear_int8_plain(*args), None,
                 lambda: composed_int8_linear(*args), 2 * rows * K * N, nbytes)
+    if name == "int8_quantize":  # x in, int8 rows and (s, 1/s) a row out; a product and a round
+        rows, K, _ = key
+        x, _, _, ascale, _ = int8_inputs(key, dtype, gen)
+        return (lambda: K4.quantize_rows(x, ascale), lambda: K4.quantize_rows_plain(x, ascale),
+                None, None, 2 * rows * K, it * rows * K + 4 + rows * K + 8 * rows)
     rows, C, g, go, has_ln1 = key
     x = rnd(rows, C)
     wd, wu = rnd(g, C // g, go, scale=(C // g) ** -0.5), rnd(g, go, C // g, scale=go ** -0.5)
@@ -719,16 +754,17 @@ def run_case(name, key, dtype, gen):
 
 
 def poison_shared_memory():
-    """Leave NaN in the shared memory of every SM: K4 over a float32 x of NaN
-    stages raw NaN tiles in its first 48 KB. The float32 checks of K1 and K2
-    run right after it, so a read of shared memory that their copies never
-    wrote shows as NaN."""
+    """Leave NaN in the shared memory of every SM: K4's GEMM under a NaN
+    scale stages float32 output tiles of NaN through its first 68 KB (each
+    row of 128 values 136 apart), two blocks on each of the 132 SMs. The
+    float32 checks of K1 and K2 run right after it, so a read of shared
+    memory that their copies never wrote shows as NaN."""
     from dg_sct_tpu_torch.ops.kernels import int8_linear as K4
     from dg_sct_tpu_torch.ops.quant import quantize_linear
 
     q = quantize_linear({"kernel": torch.ones(256, 128, device="cuda")})
-    K4.int8_linear(torch.full((64 * 4 * 132, 256), math.nan, device="cuda"), q["kernel_q"],
-                   q["kscale"], torch.ones((), device="cuda"))
+    K4.int8_linear(torch.ones((128 * 2 * 132, 256), device="cuda"), q["kernel_q"],
+                   q["kscale"], torch.full((), math.nan, device="cuda"))
 
 
 def check_case(name, key, dtype, gen):
@@ -739,6 +775,9 @@ def check_case(name, key, dtype, gen):
         poison_shared_memory()
     got, ref = kern(), plain()
     torch.cuda.synchronize()
+    if name in INT8_NAMES:
+        return (kern, plain, lib, composed, flops, nbytes, ref,
+                exact_err(got, ref, f"{name} {key} {dtype}"))
     err, worst = compare(got, ref, dtype)
     if worst > 1.0:
         raise AssertionError(f"{name} {key} {dtype}: max error {err:.3e} exceeds "
@@ -750,13 +789,13 @@ def check_kernels(cfg, only=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
+    peak_type = {"int8_linear": torch.int8, "int8_quantize": torch.float32}  # else x's type
     for name, key, per_fwd in kernel_cases(cfg):
-        if only and name not in only:
+        if only and name not in only and not (name in INT8_NAMES and set(INT8_NAMES) & set(only)):
             continue
         for dtype in (torch.float32, torch.bfloat16):
             kern, plain, lib, composed, flops, nbytes, ref, err = check_case(name, key, dtype, gen)
-            b_ms, ops_ms, bytes_ms = bound(flops, nbytes,
-                                           torch.int8 if name == "int8_linear" else dtype)
+            b_ms, ops_ms, bytes_ms = bound(flops, nbytes, peak_type.get(name, dtype))
             k_ms, k_dev, k_host = time_ms(kern)
             l_ms, l_dev, _ = time_ms(lib) if lib else (None, None, None)
             c_ms, c_dev, _ = time_ms(composed) if composed else (None, None, None)
@@ -780,6 +819,7 @@ def check_kernels(cfg, only=None):
                         lambda: torch.addmm(bb, xb, wb))
             rows.append(row)
             print("kernel", json.dumps(row), flush=True)
+    print_k4(rows)
     if not only or "adapter_bottleneck" in only or "avqa" in only:
         rows += check_avqa_k3(gen)
     if not only or {"adapter_bottleneck", "pretrain", "pretrain_train"} & set(only):
@@ -797,6 +837,39 @@ def check_kernels(cfg, only=None):
             print(f"check {name} {list(key)} {dtype} ({what}): max abs err {err:.3e} "
                   f"(atol/rtol {TOL[dtype]})", flush=True)
     return rows
+
+
+def print_k4(rows):
+    """`k4:` one line a shape and dtype (the whole K4 call: its device and
+    host-issued ms, the host's ms to issue it, its quantize pass's device
+    ms, the bound, the bf16 addmm it replaces), then `k4 sums:` each over
+    one B=2 forward's calls."""
+    quant = {(tuple(r["case"]), r["dtype"]): r for r in rows if r["name"] == "int8_quantize"}
+    k4 = [r for r in rows if r["name"] == "int8_linear"]
+    for r in k4:
+        q = quant[(tuple(r["case"]), r["dtype"])]
+        print(f"k4: {tuple(r['case'])} {r['dtype']} x{r['per_forward']}: device_ms "
+              f"{r['kernel_device_ms']:.4f}, ms {r['kernel_ms']:.4f}, kernel_host_ms "
+              f"{r['kernel_host_ms']:.4f}, quantize device_ms {q['kernel_device_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({'operations' if r['ops_ms'] >= r['bytes_ms'] else 'bytes'})"
+              + (f", bf16 addmm device_ms {r['matmul_device_ms']:.4f}" if "matmul_ms" in r else ""),
+              flush=True)
+    for dtype in ("float32", "bfloat16"):
+        mine = [r for r in k4 if r["dtype"] == dtype]
+        if not mine:
+            continue
+        tot = lambda k, rs=mine: sum(r["per_forward"] * r[k] for r in rs)
+        qs = [quant[(tuple(r["case"]), dtype)] for r in mine]
+        print(f"k4 sums: {dtype}, one B={BATCH} forward's {sum(r['per_forward'] for r in mine)} "
+              f"calls at {len(mine)} shapes: device {tot('kernel_device_ms'):.4f} ms, issued "
+              f"{tot('kernel_ms'):.4f} ms, host {tot('kernel_host_ms'):.4f} ms; the quantize "
+              f"pass {tot('kernel_device_ms', qs):.4f} ms on the card; bound "
+              f"{tot('bound_ms'):.4f} ms; plain {tot('plain_ms'):.4f} ms; composed "
+              f"{tot('composed_device_ms'):.4f} ms on the card"
+              + (f"; bf16 addmm {tot('matmul_ms'):.4f} / {tot('matmul_device_ms'):.4f} ms"
+                 if dtype == "bfloat16" else "")
+              + f"; max abs err {max(max(r['max_abs_err'], r['dynamic_err']) for r in mine)}",
+              flush=True)
 
 
 def check_avqa_k3(gen):
@@ -898,7 +971,7 @@ def kernels_line(rows, counts, parallel=None):
 KERNEL_GROUPS = (("K1", ("window_attention_kernel",)),
                  ("K2", ("block_attn_",)),
                  ("K3", ("bottleneck_kernel",)),
-                 ("K4", ("int8_linear_kernel",)),
+                 ("K4", ("int8_linear", "int8_quantize")),
                  ("library GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("memcpy", ("memcpy", "memset")))
 
@@ -1374,7 +1447,7 @@ TRAIN_BATCH = 8      # TrainConfig.batch_size: 80 frames and 80 audio clips a mi
 TRAIN_ACCUM = 2
 TRAIN_STEPS = 4
 EVAL_LAUNCHES = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 0,
-                 "int8_linear": 0}
+                 "int8_linear": 0, "int8_quantize": 0}
 
 
 def unused_leaf(path) -> bool:
@@ -1558,7 +1631,7 @@ def run_training(cfg, device="cuda"):
 # ---------------------------------------------------------------------------
 
 INT8_PER_FORWARD = {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 48,
-                    "int8_linear": 430}
+                    "int8_linear": 430, "int8_quantize": 430}
 INT8_ELIGIBLE = 431     # eligible linears of towers and adapters; HTS-AT's head is never called
 INT8_TOWERS_ONLY = 142  # K4 a forward with the towers alone quantized
 INT8_ATTN_K1 = 10       # K1 a forward with int8_attn: HTS-AT stages 1-3 only
@@ -1579,7 +1652,8 @@ INT8_NUDGE = 1e-6  # relative change of the frames for the sensitivity
 def int8_variants(scales):
     """(name, engine options, launches a forward) of the other int8 runs."""
     return (("towers only", dict(int8_towers=True, act_scales=scales),
-             dict(INT8_PER_FORWARD, int8_linear=INT8_TOWERS_ONLY)),
+             dict(INT8_PER_FORWARD, int8_linear=INT8_TOWERS_ONLY,
+                  int8_quantize=INT8_TOWERS_ONLY)),
             ("dynamic scales", dict(int8_towers=True, int8_adapters=True, act_scales=None),
              INT8_PER_FORWARD),
             ("int8_attn", dict(int8_towers=True, int8_adapters=True, act_scales=scales,
@@ -1626,10 +1700,10 @@ def check_int8_calls(qp, towers, forward, what):
         print(f"{what}: K4 call of qid {qid} {tuple(nodes[qid]['kernel_q'].shape)}: max abs "
               f"err {stats[i, 0]:.3e}, error/tolerance {stats[i, 1]:.3e}, non-finite inputs "
               f"{int(stats[i, 2])}", flush=True)
-    err, worst = stats[:, 0].max().item(), stats[:, 1].max().item()
-    if not worst <= 1.0:
-        raise AssertionError(f"{what}: a K4 call of the forward disagrees with the plain "
-                             f"version ({err:.3e})")
+    err = stats[:, 0].max().item()
+    if not err == 0:
+        raise AssertionError(f"{what}: a K4 call of the forward differs from the plain "
+                             f"version ({err:.3e}), expected 0")
     return len(check.calls), err
 
 
@@ -1740,7 +1814,7 @@ def run_int8(cfg, device="cuda"):
         lambda t: ave.forward(t, fs, wave, frames, cfg, kernels=True, device=device),
         "int8 f32")
     print(f"int8 f32: each of the {calls} K4 calls of a forward against the plain version on "
-          f"its own input: max abs err {err:.3e} (atol/rtol {TOL[torch.float32]})", flush=True)
+          f"its own input: max abs err {err:.3e} (must be 0)", flush=True)
     bad = []
     for k, bound in INT8_TOL.items():
         g, r = got[k].float().cpu().numpy(), ref[k].float().cpu().numpy()
@@ -1777,10 +1851,11 @@ def run_int8(cfg, device="cuda"):
 # ---------------------------------------------------------------------------
 
 AVS_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_avs_s4.json"
+# AVS adapters stay off K3, as in the JAX package
 AVS_PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 0,
-                   "int8_linear": 0}  # AVS adapters stay off K3, as in the JAX package
+                   "int8_linear": 0, "int8_quantize": 0}
 AVS_INT8_PER_FORWARD = {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 0,
-                        "int8_linear": 142}
+                        "int8_linear": 142, "int8_quantize": 142}
 AVS_STREAM_CLIPS = 16
 AVS_INT8_TOWERS = ("swin", "htsat")  # what the AVS engine's int8_towers quantizes
 # f32 engine with kernels against the plain one, max |delta logit| over max
@@ -2133,7 +2208,7 @@ def check_int8_forward(what, params, state, cfg, towers, scales, forward):
     del fp
     n_calls, kerr = check_int8_calls(qp, towers, lambda t: forward(t, fs), what)
     print(f"{what}: each of the {n_calls} K4 calls of a forward against the plain version on "
-          f"its own input: max abs err {kerr:.3e} (atol/rtol {TOL[torch.float32]})", flush=True)
+          f"its own input: max abs err {kerr:.3e} (must be 0)", flush=True)
 
 
 def run_avs(device="cuda"):
@@ -2259,7 +2334,7 @@ def run_avs(device="cuda"):
         lambda t: avs.forward(t, fs, frames, wave, cfg, kernels=True, device=device),
         "avs int8 f32")
     print(f"avs int8 f32: each of the {calls} K4 calls of a forward against the plain version "
-          f"on its own input: max abs err {kerr:.3e} (atol/rtol {TOL[torch.float32]})",
+          f"on its own input: max abs err {kerr:.3e} (must be 0)",
           flush=True)
     err = mean_err(got, ref)
     print(f"avs int8 f32: {BATCH} clips, kernels vs plain mean |delta logit| / mean |logit| "
@@ -2601,10 +2676,11 @@ def run_avs_training(cfg=None, device="cuda"):
 # ---------------------------------------------------------------------------
 
 AVVP_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_avvp_mgn.json"
+# the AVE adapters and towers: AVVP's take K3 too
 AVVP_PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48,
-                    "int8_linear": 0}  # the AVE adapters and towers: AVVP's take K3 too
+                    "int8_linear": 0, "int8_quantize": 0}
 AVVP_INT8_PER_FORWARD = {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 48,
-                         "int8_linear": 142}
+                         "int8_linear": 142, "int8_quantize": 142}
 AVVP_SEGMENT = 32000      # LLPDataset's wave: 1 s of 32 kHz audio a segment
 AVVP_STREAM_CLIPS = 16
 AVVP_INT8_TOWERS = ("swin", "htsat")  # what the AVVP engine's int8_towers quantizes
@@ -3095,10 +3171,11 @@ def run_avvp_training(cfg=None, device="cuda"):
 AVQA_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_avqa_fusion.json"
 AVQA_GROUNDING_CENSUS = (Path(__file__).resolve().parent / "tests" / "golden"
                          / "census_avqa_grounding.json")
+# the visual gates fold into ln_post: all 48 take K3
 AVQA_PER_FORWARD = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48,
-                    "int8_linear": 0}  # the visual gates fold into ln_post: all 48 take K3
+                    "int8_linear": 0, "int8_quantize": 0}
 AVQA_INT8_PER_FORWARD = {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 48,
-                         "int8_linear": 142}
+                         "int8_linear": 142, "int8_quantize": 142}
 AVQA_SEGMENT = 320000     # avqa_main.make_dataset's wave: the model's clip length a segment
 AVQA_STREAM_QUESTIONS = 16
 AVQA_INT8_TOWERS = ("swin", "htsat")  # what the AVQA engine's int8_towers quantizes
@@ -3332,11 +3409,11 @@ AVQA_TRAIN_STEPS = 3
 # branch's frozen Swin-V2 (B*T frames); the trainer's eval step K3 in
 # float32 on the 24 audio adapters (no BN, no gate: already in folded form)
 AVQA_STAGE1_LAUNCHES = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 0,
-                        "int8_linear": 0}
+                        "int8_linear": 0, "int8_quantize": 0}
 AVQA_STAGE2_LAUNCHES = {"window_attention": 2, "block_attention": 22, "adapter_bottleneck": 0,
-                        "int8_linear": 0}
+                        "int8_linear": 0, "int8_quantize": 0}
 AVQA_EVAL_LAUNCHES = {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 24,
-                      "int8_linear": 0}
+                      "int8_linear": 0, "int8_quantize": 0}
 AVQA_MAIN_SPLITS = {"train": 2, "val": 2, "test": 2}  # the entry point's tree: one step a split
 
 
@@ -3612,7 +3689,7 @@ def run_avqa_training(cfg=None, device="cuda"):
 # K1/K2/K3/K4 a pretrain forward: K2 in HTS-AT's 12 eval blocks; K3 in all
 # 48 adapters once they are folded, none on the adapters as loaded
 PRETRAIN_PER_FORWARD = {"window_attention": 0, "block_attention": 12, "adapter_bottleneck": 0,
-                        "int8_linear": 0}
+                        "int8_linear": 0, "int8_quantize": 0}
 PRETRAIN_FOLDED_PER_FORWARD = dict(PRETRAIN_PER_FORWARD, adapter_bottleneck=48)
 # f32 kernels against plain: the largest |delta| of v_cls, a_cls and the two
 # contrastive logits, each over its own largest value; above the sound
@@ -4247,8 +4324,9 @@ def run_features(device="cuda"):
 
 HTSAT_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_htsat_audioset.json"
 PVT_CENSUS = Path(__file__).resolve().parent / "tests" / "golden" / "census_avs_pvt_v2_b5.json"
+# the 12 HTS-AT blocks of one tower pass
 CLASSIFIER_PER_PASS = {"window_attention": 0, "block_attention": 12, "adapter_bottleneck": 0,
-                       "int8_linear": 0}  # the 12 HTS-AT blocks of one tower pass
+                       "int8_linear": 0, "int8_quantize": 0}
 CLASSIFIER_OUTPUTS = ("clipwise_output", "framewise_output", "latent_output")
 # the f32 classifier with K2 against the plain one, spread_err of the three
 # outputs (clipwise and framewise as logits) each over its largest |value|:
@@ -4612,6 +4690,8 @@ PAR_EVAL_BATCH = 2        # the eval worlds' clips (20 frames and 20 audio clips
 PIPE_RANKS = 3            # stage 2 at full width: [None, None, b0] x 6, three repeated pairs
 PIPE_MICRO = 4            # microbatches of the 20 rows through the pipe
 PAR_JOIN_S = 420.0        # a world's whole run (each process group times out after 120 s)
+TP4_RANKS = 4             # TP at data 1 x model 4 (heads 6 of Swin stage 0 do not split)
+TP4_BUDGET_S = 40.0       # the model-4 world's planned time, start-up included
 # DP against one process on the card. Float32 rounding of this model's gradient is amplified
 # by the backward through the towers (one process's own gradient moves by several percent
 # under reordered clips, the adapters' leaves carrying the move; read here in both dtypes), so
@@ -4629,11 +4709,15 @@ PAR_OUTPUTS = ("event_scores", "is_event_scores")
 # whole (K1 2, K2 10, K3 24) and one of stage 2's three pairs (K2 8, K3 8) a microbatch
 PAR_LAUNCHES = {
     "sp": {"window_attention": 2, "block_attention": 34, "adapter_bottleneck": 48,
-           "int8_linear": 0},
+           "int8_linear": 0, "int8_quantize": 0},
     "tp": {"window_attention": 36, "block_attention": 0, "adapter_bottleneck": 0,
-           "int8_linear": 0},
+           "int8_linear": 0, "int8_quantize": 0},
+    # model 4: Swin stage 0's 6 heads stay whole (K2 in its 2 blocks), the adapters' 2 groups too
+    # (K3 in all 48, folded), every other attention splits by heads (K1 in 34 blocks)
+    "tp4": {"window_attention": 34, "block_attention": 2, "adapter_bottleneck": 48,
+            "int8_linear": 0, "int8_quantize": 0},
     "pipe": {"window_attention": 2, "block_attention": 10 + 8 * PIPE_MICRO,
-             "adapter_bottleneck": 24 + 8 * PIPE_MICRO, "int8_linear": 0},
+             "adapter_bottleneck": 24 + 8 * PIPE_MICRO, "int8_linear": 0, "int8_quantize": 0},
 }
 
 
@@ -4764,7 +4848,7 @@ def par_eval(mode, cfg, device, mesh_, dtype):
     params, state, ecfg = par_eval_model(cfg, device, dtype)
     wave, frames = par_eval_inputs(cfg)
     batch, kw = {"wave": wave, "image": frames}, {}
-    if mode == "tp":
+    if mode in ("tp", "tp4"):
         params = M.tp_shard_params(params, mesh_)
         kw["tp"] = TensorParallel(mesh_.group(M.MODEL_AXIS))
         torch.cuda.empty_cache()
@@ -4806,8 +4890,8 @@ def par_evals(mode, cfg, device, mesh_, res):
 def par_rank(rank, world, init_file, job, out_dir, results):
     """One rank of a phase-18 world: "dp_eval" (2 ranks: the DP AVE step in
     float32 and in float64, the AVS-S4 and AVQA stage-2 DP steps, SP eval
-    over data 1 x seq 2, TP eval over data 1 x model 2) or "pipe"
-    (PIPE_RANKS ranks). Puts (rank, "ok", readings) or (rank, "error",
+    over data 1 x seq 2, TP eval over data 1 x model 2), "tp4" (TP4_RANKS
+    ranks: TP eval over data 1 x model 4) or "pipe" (PIPE_RANKS ranks). Puts (rank, "ok", readings) or (rank, "error",
     traceback) on `results`."""
     import traceback
     import torch.distributed as dist
@@ -4849,6 +4933,8 @@ def par_rank(rank, world, init_file, job, out_dir, results):
             for mode, shape in (("sp", {M.DATA_AXIS: 1, M.SEQ_AXIS: world}),
                                 ("tp", {M.DATA_AXIS: 1, M.MODEL_AXIS: world})):
                 par_evals(mode, cfg, device, M.Mesh(shape), res)
+        elif job == "tp4":
+            par_evals("tp4", cfg, device, M.Mesh({M.DATA_AXIS: 1, M.MODEL_AXIS: world}), res)
         else:
             par_evals("pipe", cfg, device, M.make_mesh(world, M.PIPE_AXIS), res)
         dist.destroy_process_group()
@@ -5042,6 +5128,17 @@ def run_parallel(device="cuda"):
             bad.append("tp: a rank holds more than 0.6 of the towers")
 
         t0 = time.perf_counter()
+        ranks = par_world("tp4", TP4_RANKS, tmp)
+        tp4_s = time.perf_counter() - t0
+        tb = [r["tp4"]["tower_bytes"] for r in ranks]
+        launches["tp4"] = par_check_eval(
+            "tp4", ranks, one, drift, bad,
+            f"; tower bytes a rank {tb} against one process's {one_bytes} ({tb[0] / one_bytes:.3f});"
+            f" world {tp4_s:.1f} s (budget {TP4_BUDGET_S:.0f} s)")
+        if max(tb) > 0.4 * one_bytes:
+            bad.append("tp4: a rank holds more than 0.4 of the towers")
+
+        t0 = time.perf_counter()
         ranks = par_world("pipe", PIPE_RANKS, tmp)
         print(f"parallel pipe: world {time.perf_counter() - t0:.1f} s, n_micro {PIPE_MICRO}, "
               f"pipelined stages {[r['pipe']['pipelined'] for r in ranks]}", flush=True)
@@ -5145,7 +5242,8 @@ def main() -> int:
     t0 = time.perf_counter()
     int8_counts = run_int8(cfg)
     print(f"int8: phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
-    counts["int8_linear"] = int8_counts["int8_linear"]  # K4's main path is phase 7
+    for name in INT8_NAMES:  # K4's main path is phase 7
+        counts[name] = int8_counts[name]
     run_avs()
     run_avs_training()
     run_avvp()

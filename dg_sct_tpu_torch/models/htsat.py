@@ -20,6 +20,7 @@ from ..ops.basic import (Init, batch_norm, batch_norm_init, drop_path_rates, dro
                          mlp_init, patch_embed, patch_embed_init)
 from ..ops.windows import (attention_v1_init, fused_block_eligible, fused_half_block,
                            shifted_window_attention, window_attention_v1)
+from ..parallel.tp import for_split
 
 
 def init_block(init: Init, dim, heads, ws, mlp_ratio):
@@ -92,20 +93,25 @@ def frontend(params, state, wave, cfg: HTSATConfig, *, train=False, gen=None,
 
 
 def block(params, x, *, dim, heads, res, ws, shift, kernels=True, gelu="exact", drop=None,
-          tp=None):
+          tp=None, hidden=None):
     """Pre-norm V1 Swin block. x: (N, L, C). `drop` (mask1, mask2, rate):
     drop_path on the attention and MLP residuals (training). `tp`: an eval
-    forward over tensor-parallel shards (`parallel.tp`)."""
+    forward over tensor-parallel shards (`parallel.tp`), where the attention
+    is split if the model axis divides `heads` and the MLP if it divides
+    its `hidden` width; each runs whole, as in one process, otherwise."""
+    tp_mlp = for_split(tp, hidden)
+    tp = for_split(tp, heads)
     if fused_block_eligible(dim, heads, False, kernels, params["attn"], tp):
         x = fused_half_block(params, x, kind="v1", heads=heads, res=res, ws=ws, shift=shift)
-        return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels)
+        return x + mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels,
+                       tp=tp_mlp)
     H, W = res
     attn_out = shifted_window_attention(
         lambda w, m, nw: window_attention_v1(params["attn"], w, num_heads=heads, ws=ws,
                                              mask=m, nW=nw, kernels=kernels, tp=tp),
         layer_norm(params["norm1"], x), H=H, W=W, ws=ws, shift=shift)
     x = x + drop_residual(attn_out, drop, 0)
-    y = mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels, tp=tp)
+    y = mlp(params["mlp"], layer_norm(params["norm2"], x), gelu, kernels=kernels, tp=tp_mlp)
     return x + drop_residual(y, drop, 1)
 
 
@@ -126,7 +132,7 @@ def block_plan(cfg: HTSATConfig):
         first = sum(cfg.depths[:s])
         plan.append([dict(dim=cfg.stage_dim(s), heads=cfg.num_heads[s], res=res, ws=ws,
                           shift=0 if min(res) <= cfg.window_size or d % 2 == 0 else ws // 2,
-                          dpr=dprs[first + d])
+                          dpr=dprs[first + d], hidden=int(cfg.stage_dim(s) * cfg.mlp_ratio))
                      for d in range(cfg.depths[s])])
     return plan
 

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from ..configs import AVEModelConfig, ave_adapter_dims, ave_paired_layout, vis_adapter_cfg
 from ..ops.basic import Init, drop_path_mask, drop_residual, layer_norm, mlp
 from ..parallel.pipeline import gpipe
+from ..parallel.tp import for_split
 from . import adapter as A
 from . import htsat as H
 from . import swinv2 as S
@@ -114,12 +115,12 @@ def _paired_step(blk_params, blk_state, f_v, f_a, v_drop, a_drop, vmeta, ameta, 
                       tp=tp) + v_res
     f_a = H.block(ap, f_a, dim=ameta["dim"], heads=ameta["heads"], res=ameta["res"],
                   ws=ameta["ws"], shift=ameta["shift"], kernels=kernels, gelu=gelu,
-                  drop=a_drop, tp=tp) + a_res
+                  drop=a_drop, tp=tp, hidden=ameta["hidden"]) + a_res
     a_res, a_maps, new_st["a_p2"] = A.adapter(ad["a_p2"], blk_state["a_p2"], f_a, f_v, acfg,
                                               **kw)
     v_res, v_maps, new_st["v_p2"] = A.adapter(ad["v_p2"], blk_state["v_p2"], f_v, f_a, vcfg,
                                               **kw)
-    y = mlp(vp["mlp"], f_v, gelu, kernels=kernels, tp=tp)
+    y = mlp(vp["mlp"], f_v, gelu, kernels=kernels, tp=for_split(tp, vmeta["hidden"]))
     f_v = f_v + drop_residual(layer_norm(vp["norm2"], y), v_drop, 1) + v_res
     return f_v, f_a + a_res, a_maps, v_maps, new_st
 

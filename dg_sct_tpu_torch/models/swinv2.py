@@ -12,6 +12,7 @@ from ..ops.basic import (Init, drop_path_rates, drop_residual, layer_norm, layer
                          linear, merge_2x2, mlp, mlp_init, patch_embed, patch_embed_init)
 from ..ops.windows import (attention_v2_init, fused_block_eligible, fused_half_block,
                            shifted_window_attention, window_attention_v2)
+from ..parallel.tp import for_split
 
 
 def init_block(init: Init, dim, heads, mlp_ratio):
@@ -49,7 +50,8 @@ def block_plan(cfg: SwinV2Config):
         first = sum(cfg.depths[:s])
         plan.append([dict(dim=cfg.stage_dim(s), heads=cfg.num_heads[s], res=res, ws=ws,
                           shift=0 if min(res) <= cfg.window_size or d % 2 == 0 else ws // 2,
-                          pretrained_ws=cfg.pretrained_window_sizes[s], dpr=dprs[first + d])
+                          pretrained_ws=cfg.pretrained_window_sizes[s], dpr=dprs[first + d],
+                          hidden=int(cfg.stage_dim(s) * cfg.mlp_ratio))
                      for d in range(cfg.depths[s])])
     return plan
 
@@ -69,7 +71,10 @@ def attn_part(params, x, meta, *, kernels=True, int8_attn=False, tp=None):
 
 def attn_half(params, x, meta, *, kernels=True, int8_attn=False, drop=None, tp=None):
     """x + norm1(attn(x)): K2 where it applies, else the plain composition,
-    whose residual goes through drop_path with `drop` (mask1, mask2, rate)."""
+    whose residual goes through drop_path with `drop` (mask1, mask2, rate).
+    Under `tp`, an attention whose heads the model axis does not split runs
+    whole, as in one process."""
+    tp = for_split(tp, meta["heads"])
     if drop is None and fused_block_eligible(meta["dim"], meta["heads"], False, kernels,
                                              params["attn"], tp):
         return fused_half_block(params, x, kind="v2", heads=meta["heads"], res=meta["res"],
@@ -84,7 +89,7 @@ def block(params, x, meta, *, kernels=True, int8_attn=False, gelu="exact", drop=
     (mask1, mask2, rate): drop_path on the two residuals (training). `tp`:
     an eval forward over tensor-parallel shards (`parallel.tp`)."""
     x = attn_half(params, x, meta, kernels=kernels, int8_attn=int8_attn, drop=drop, tp=tp)
-    y = mlp(params["mlp"], x, gelu, kernels=kernels, tp=tp)
+    y = mlp(params["mlp"], x, gelu, kernels=kernels, tp=for_split(tp, meta["hidden"]))
     return x + drop_residual(layer_norm(params["norm2"], y), drop, 1)
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels: K1 window attention, K2 attention half-block,
-K3 adapter bottleneck, K4 int8 linear. Each module holds the wrapper (kernel on a CUDA
+K3 adapter bottleneck, K4 int8 linear (its int8 GEMM, and the quantize of its
+input as a kernel of its own). Each module holds the wrapper (kernel on a CUDA
 tensor, plain version on a CPU tensor), the plain version and the launch
 count."""
 from __future__ import annotations
@@ -11,6 +12,7 @@ KERNELS = {
     "block_attention": block_attention.KERNEL,
     "adapter_bottleneck": adapter_bottleneck.KERNEL,
     "int8_linear": int8_linear.KERNEL,
+    "int8_quantize": int8_linear.QUANTIZE,
 }
 
 

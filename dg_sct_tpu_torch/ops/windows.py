@@ -235,9 +235,10 @@ def fused_block_eligible(C: int, heads: int, train: bool, kernels: bool, attn, t
     (`dg_sct_tpu/ops/windows.py:337`), so both packages take the same path;
     and only if the block's `attn` params hold an unquantized qkv and proj:
     the JAX package's K2 cannot take an int8 proj, so its int8 serving runs
-    such blocks on the plain path, and so does the port. Never under tensor
-    parallelism (`tp`): K2 adds the residual after proj, before the
-    all-reduce of proj's partial sums could."""
+    such blocks on the plain path, and so does the port. Never for an
+    attention split under tensor parallelism (`tp`): K2 adds the residual
+    after proj, before the all-reduce of proj's partial sums could. One that
+    stays whole on every rank comes here with `tp` None, as in one process."""
     return (tp is None and kernels and not train and C <= 768 and C % heads == 0
             and "kernel" in attn["qkv"] and "kernel" in attn["proj"])
 

@@ -199,9 +199,12 @@ def tp_shard_params(params, mesh: Mesh):
     each leaf `tp_param_spec` shards replaced by a copy of this rank's
     shard, the others kept (replicated). The qkv kernels are split by heads
     (`parallel.tp.qkv_columns`, Megatron's layout, not the contiguous
-    columns of the JAX spec). Every attention and MLP is split (the blocks
-    of `parallel.tp` take them so): one whose heads or widths the model
-    axis does not divide raises, where JAX would keep it whole."""
+    columns of the JAX spec). An attention whose heads the model axis does
+    not divide keeps its qkv and proj whole, where JAX's rule splits the
+    qkv columns wherever 3C divides and GSPMD keeps the result exact: the
+    block then runs whole on every rank (`parallel.tp.for_split`), with the
+    same outputs and no collective. An MLP whose hidden width does not
+    divide stays whole under both rules."""
     size, rank = mesh.size(MODEL_AXIS), mesh.index(MODEL_AXIS)
 
     def node(path):
@@ -214,18 +217,16 @@ def tp_shard_params(params, mesh: Mesh):
     for path, leaf in tree_paths(params):
         spec = tp_param_spec(path, leaf, size)
         if not spec:
-            keys = [p for p in path if isinstance(p, str)]
-            mlp = "mlp" in keys and ("fc1" in keys or "fc2" in keys)
-            attn = "qkv" in keys or ("attn" in keys and "proj" in keys)
-            if leaf.ndim == 2 and "kernel" in keys and (mlp or attn):
-                raise ValueError(f"{path}: {tuple(leaf.shape)} does not split over {size} "
-                                 "model ranks")
             continue
-        if "qkv" in path:
-            shards[path] = qkv_columns(leaf, _attn_heads(node(path[:path.index("qkv")])),
-                                       size, rank).clone()
-        else:
-            shards[path] = _part(leaf, spec.index(MODEL_AXIS), size, rank).clone()
+        if "qkv" in path or ("attn" in path and "proj" in path):
+            attn = node(path[:path.index("qkv" if "qkv" in path else "proj")])
+            heads = _attn_heads(attn)
+            if heads % size:
+                continue
+            if "qkv" in path:
+                shards[path] = qkv_columns(leaf, heads, size, rank).clone()
+                continue
+        shards[path] = _part(leaf, spec.index(MODEL_AXIS), size, rank).clone()
 
     def build(tree, prefix=()):
         if isinstance(tree, dict):

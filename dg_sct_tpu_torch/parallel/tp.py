@@ -1,11 +1,14 @@
 """Tensor (Megatron) parallelism of an eval forward over a `model` group.
 
-A rank holds the shards `mesh.tp_shard_params` cuts: every attention's qkv
-split by columns and its proj by rows, every MLP's fc1 by columns (with its
-bias) and fc2 by rows, and the adapters' grouped bottleneck kernels by
-groups where their group count divides the model axis (`splits`; else the
-bottleneck is whole on every rank). Given a `TensorParallel`, the blocks
-then run:
+A rank holds the shards `mesh.tp_shard_params` cuts: the qkv of every
+attention whose heads divide the model axis split by columns and its proj
+by rows, the fc1 of every MLP whose hidden width divides it split by
+columns (with its bias) and its fc2 by rows, and the adapters' grouped
+bottleneck kernels by groups where their group count divides it
+(`splits`). Whatever does not divide stays whole on every rank, and its
+block runs there as in one process (`for_split`: no collective, and K2 or
+K3 where one process would take them), so its output is one process's.
+Given a `TensorParallel`, the split blocks run:
   * attention: qkv on this rank's heads, the attention core on them (K1 on
     the card: a half-block under tensor parallelism never takes K2, whose
     fused residual would come before the all-reduce of proj's partial
@@ -73,6 +76,13 @@ class TensorParallel:
         return torch.cat(parts, dim=-1)
 
 
+def for_split(tp, n: int):
+    """`tp` for a block of n heads (attention) or n hidden columns (MLP)
+    that the model axis splits; None, the block whole as in one process,
+    without tensor parallelism or where n does not divide the axis."""
+    return tp if tp is not None and tp.splits(n) else None
+
+
 def qkv_columns(kernel, heads: int, size: int, rank: int):
     """Rank `rank`'s columns of a (C, 3C) qkv kernel (or (3C,) bias) split
     by heads over `size` ranks: its heads' q, k and v columns."""
@@ -86,7 +96,7 @@ def qkv_columns(kernel, heads: int, size: int, rank: int):
 
 def split_heads(tp, params, heads: int, C: int):
     """(this rank's view of an attention's params, its heads) under tensor
-    parallelism; (params, heads) when `tp` is None."""
+    parallelism (`tp` from `for_split`); (params, heads) when `tp` is None."""
     if tp is None:
         return params, heads
     hs = tp.share(heads)

@@ -105,8 +105,10 @@ class _ModelAxis:
 
 def test_tp_shard_params_splits_every_block_or_raises(model):
     """Every attention's and MLP's kernels are split, the adapters'
-    bottlenecks where their groups divide the axis; a model axis that does
-    not divide a block's heads or widths raises."""
+    bottlenecks where their groups divide the axis; at a model axis of 3,
+    which divides none of the tiny model's heads (2) or hidden widths, an
+    attention or MLP is split where its heads or hidden width divide 3 and
+    whole where they do not."""
     _, pcfg, jp, js, _, _, _ = model
     from dg_sct_tpu_torch.utils.tree import tree_paths
     from dg_sct_tpu_torch.weights import from_jax
@@ -121,8 +123,23 @@ def test_tp_shard_params_splits_every_block_or_raises(model):
             assert shard[path].shape[0] * 2 == t.shape[0], path
         if t.ndim == 3 and "kernel" in keys and ("down" in keys or "up" in keys):
             assert shard[path].shape[0] * (2 if t.shape[0] % 2 == 0 else 1) == t.shape[0], path
-    with pytest.raises(ValueError, match="does not split|do not split"):
-        PM.tp_shard_params(pp, _ModelAxis(3, 0))
+    shard3 = dict(tree_paths(PM.tp_shard_params(pp, _ModelAxis(3, 0))))
+    whole = 0
+    for path, t in full.items():
+        keys = [k for k in path if isinstance(k, str)]
+        if t.ndim != 2 or "kernel" not in keys or path[1:2] != ("layers",):
+            continue
+        heads = getattr(pcfg, path[0]).num_heads[path[2]]
+        if "qkv" in keys or "proj" in keys:
+            n, axis = heads, 1 if "qkv" in keys else 0
+        elif "fc1" in keys or "fc2" in keys:
+            n, axis = t.shape[1 if "fc1" in keys else 0], 1 if "fc1" in keys else 0
+        else:
+            continue
+        split = 3 if n % 3 == 0 else 1
+        whole += split == 1
+        assert shard3[path].shape[axis] * split == t.shape[axis], path
+    assert whole > 0
 
 
 def test_tp_eval_matches_jax(model, tmp_path):
