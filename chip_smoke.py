@@ -287,7 +287,16 @@ Phases, each fatal on failure:
      microbatches (2/42/56 a rank); each eval, in bf16 and in float32,
      against the one-process forward of its dtype on event_scores and the
      per-frame is_event_scores (float32 within PAR_F32_TOL, bf16 within
-     PAR_BF16_FACTOR times the bf16 forward's drift from float32); then
+     PAR_BF16_FACTOR times the bf16 forward's drift from float32); the same
+     3-rank world then takes one backward through the pipelined eval forward
+     (kernels off, seeded_model's unfolded weights, PIPE_GRAD_FRAMES segments of
+     a clip in PIPE_GRAD_MICRO microbatches, a seeded weighting of event_scores and
+     is_event_scores) in float64 and in float32, each rank holding the
+     gradient of every tower and adapter leaf it gets against its own one-
+     process gradient of the unpipelined forward (float64 within PIPE_GRAD_F64_RTOL,
+     float32 within PIPE_GRAD_F32_FACTOR times one process's own float32
+     move from float64), every such leaf on some rank, and the same forward
+     with the kernels on raising on every rank (no kernel has a backward); then
      `ave_main --mode smoke` in an NCCL world of one rank. Every process
      group times out after 120 s (`parallel.mesh.TIMEOUT`), every world
      after PAR_JOIN_S. Times of several ranks on one card are not speeds of
@@ -673,9 +682,10 @@ def window_bias(bias, mask, Bw):
     return full.contiguous()
 
 
-def run_case(name, key, dtype, gen):
+def run_case(name, key, dtype, gen, grad=False):
     """Inputs from `gen` on the card -> (kernel fn, plain fn, library fn or
-    None, composed fn or None, flops, bytes)."""
+    None, composed fn or None, flops, bytes). `grad`: the first operand
+    requires grad."""
     from dg_sct_tpu_torch.ops.kernels import adapter_bottleneck as K3
     from dg_sct_tpu_torch.ops.kernels import block_attention as K2
     from dg_sct_tpu_torch.ops.kernels import int8_linear as K4
@@ -688,6 +698,7 @@ def run_case(name, key, dtype, gen):
     if name == "window_attention":
         Bw, N, H, D, nW, masked, Hs, Ws, ws = key
         q, k, v = rnd(Bw, N, H, D, scale=0.3), rnd(Bw, N, H, D, scale=0.3), rnd(Bw, N, H, D)
+        q.requires_grad_(grad)
         bias = rnd(H, N, N, scale=0.5)
         mask = None
         if masked:
@@ -704,7 +715,7 @@ def run_case(name, key, dtype, gen):
     if name == "block_attention":
         kind, B, Hs, Ws, C, heads, ws, shift = key
         N = ws * ws
-        x = rnd(B, Hs, Ws, C)
+        x = rnd(B, Hs, Ws, C).requires_grad_(grad)
         wqkv, wproj = rnd(C, 3 * C, scale=C ** -0.5), rnd(C, C, scale=C ** -0.5)
         bqkv, bproj = rnd(3 * C, scale=0.1), rnd(C, scale=0.1)
         if kind == "v2":
@@ -741,7 +752,7 @@ def run_case(name, key, dtype, gen):
         return (lambda: K4.quantize_rows(x, ascale), lambda: K4.quantize_rows_plain(x, ascale),
                 None, None, 2 * rows * K, it * rows * K + 4 + rows * K + 8 * rows)
     rows, C, g, go, has_ln1 = key
-    x = rnd(rows, C)
+    x = rnd(rows, C).requires_grad_(grad)
     wd, wu = rnd(g, C // g, go, scale=(C // g) ** -0.5), rnd(g, go, C // g, scale=go ** -0.5)
     bd, bu = rnd(g * go, scale=0.1), rnd(C, scale=0.1)
     ln = [(1.0 + rnd(C, scale=0.1).float()).to(dtype), rnd(C, scale=0.1)] * 2
@@ -785,14 +796,42 @@ def check_case(name, key, dtype, gen):
     return kern, plain, lib, composed, flops, nbytes, ref, err
 
 
+def check_refuses_grad(name, key):
+    """K1-K3's wrapper on the card, under grad mode with its first operand
+    requiring grad: it must raise before it launches (`build.refuse_grad`;
+    no kernel has a backward). Its own generator: the checks' inputs stay
+    as they were."""
+    from dg_sct_tpu_torch.ops.kernels import launch_counts
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    kern = run_case(name, key, torch.float32, gen, grad=True)[0]
+    before = launch_counts()
+    try:
+        with torch.enable_grad():
+            kern()
+        raised = False
+    except RuntimeError as e:
+        raised = "no backward" in str(e)
+    launched = launch_counts() != before
+    print(f"check {name} {list(key)} float32 asked for a gradient: raised {raised}, "
+          f"launched {launched}", flush=True)
+    if not raised or launched:
+        raise AssertionError(f"{name}: the wrapper did not refuse a gradient on the card")
+
+
 def check_kernels(cfg, only=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
     peak_type = {"int8_linear": torch.int8, "int8_quantize": torch.float32}  # else x's type
+    refusal = {"window_attention", "block_attention", "adapter_bottleneck"}  # K1-K3
     for name, key, per_fwd in kernel_cases(cfg):
         if only and name not in only and not (name in INT8_NAMES and set(INT8_NAMES) & set(only)):
             continue
+        if name in refusal:
+            refusal.discard(name)
+            check_refuses_grad(name, key)
         for dtype in (torch.float32, torch.bfloat16):
             kern, plain, lib, composed, flops, nbytes, ref, err = check_case(name, key, dtype, gen)
             b_ms, ops_ms, bytes_ms = bound(flops, nbytes, peak_type.get(name, dtype))
@@ -4690,6 +4729,15 @@ PAR_EVAL_BATCH = 2        # the eval worlds' clips (20 frames and 20 audio clips
 PIPE_RANKS = 3            # stage 2 at full width: [None, None, b0] x 6, three repeated pairs
 PIPE_MICRO = 4            # microbatches of the 20 rows through the pipe
 PAR_JOIN_S = 420.0        # a world's whole run (each process group times out after 120 s)
+# the backward through the pipe: the first 5 of one clip's 10 segments (5 rows, num_frames 5:
+# no weight depends on it) in 5 microbatches of 1. The three ranks share the card, each with
+# its float64 weights, gradient and GPipe's saved activations of stages 0, 1, 3 and its pair:
+# at 10 rows they passed the card's 80 GB (PERF.md)
+PIPE_GRAD_FRAMES = 5
+PIPE_GRAD_MICRO = 5
+PIPE_GRAD_F64_RTOL = 1e-9    # float64: the gradient's relative L2, as the DP check's
+PIPE_GRAD_F32_FACTOR = 4.0   # float32: of one process's own float32-vs-float64 move
+PIPE_GRAD_PARTS = ("swin", "htsat", "adapters")
 TP4_RANKS = 4             # TP at data 1 x model 4 (heads 6 of Swin stage 0 do not split)
 TP4_BUDGET_S = 40.0       # the model-4 world's planned time, start-up included
 # DP against one process on the card. Float32 rounding of this model's gradient is amplified
@@ -4877,6 +4925,139 @@ def par_eval(mode, cfg, device, mesh_, dtype):
     return res
 
 
+def pipe_grad_model(cfg, device, dtype):
+    """seeded_model's weights in `dtype`, every float param leaf requiring grad."""
+    from dg_sct_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    params, state = (tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+                     for tree in seeded_model(cfg, device=device))
+    for t in tree_leaves(params):
+        if t.is_floating_point():
+            t.requires_grad_()
+    return params, state
+
+
+def pipe_grad(cfg, device, model, pipeline=None, kernels=False):
+    """One backward through the AVE eval forward (`pipeline` = (pipe group,
+    n_micro), or one process) of `model` (pipe_grad_model's) on the first
+    PIPE_GRAD_FRAMES segments of par_eval_inputs' first clip; loss sum(w *
+    event_scores) + sum(w' * is_event_scores), w and w' seeded -> (loss,
+    {path: gradient or None} of the leaves under PIPE_GRAD_PARTS)."""
+    import dataclasses
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+
+    params, state = model
+    dtype = params["swin"]["patch_embed"]["kernel"].dtype
+    wave, frames = (a[:1, :PIPE_GRAD_FRAMES] for a in par_eval_inputs(cfg))
+    kw = {} if pipeline is None else {"pipeline": pipeline}
+    ecfg = dataclasses.replace(cfg, compute_dtype=dtype, num_frames=PIPE_GRAD_FRAMES)
+    out = ave.forward(params, state, wave, frames, ecfg, kernels=kernels, device=device, **kw)
+    rs = np.random.RandomState(11)
+    loss = sum((torch.as_tensor(rs.randn(*out[k].shape), device=device, dtype=dtype) * out[k]).sum()
+               for k in PAR_OUTPUTS)
+    keep = [(p, t) for p, t in tree_paths(params) if p[0] in PIPE_GRAD_PARTS and t.requires_grad]
+    grads = torch.autograd.grad(loss, [t for _, t in keep], allow_unused=True)
+    return float(loss.detach()), {"/".join(map(str, p)): g for (p, _), g in zip(keep, grads)}
+
+
+def par_pipe_grad(cfg, device, mesh_, rank, world):
+    """Phase 18's pipe backward on this rank, float64 then float32: the
+    pipelined gradient (the world's time, this rank's peak), then one
+    process's gradient of the unpipelined forward on the same weights, on
+    every rank at once -> per dtype the loss, times, peaks and, per leaf this
+    rank got, (sum (g - ref)^2, sum ref^2); rank 0 also one process's own
+    float32 move from float64; then whether the pipelined forward with the
+    kernels on raised."""
+    import torch.distributed as dist
+    from dg_sct_tpu_torch.parallel import mesh as M
+
+    group = mesh_.group(M.PIPE_AXIS)
+    res, ref64 = {}, None
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        model = pipe_grad_model(cfg, device, dtype)
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        loss, grads = pipe_grad(cfg, device, model, pipeline=(group, PIPE_GRAD_MICRO))
+        torch.cuda.synchronize(device)
+        dist.barrier(group)
+        r = {"loss": loss, "seconds": time.perf_counter() - t0,
+             "peak": torch.cuda.max_memory_allocated(device), "leaves": {}, "unused": []}
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        r["ref_loss"], ref = pipe_grad(cfg, device, model)
+        torch.cuda.synchronize(device)
+        r["ref_seconds"] = time.perf_counter() - t0
+        r["ref_peak"] = torch.cuda.max_memory_allocated(device)
+        r["read"] = sum(g is not None for g in ref.values())
+        for path, g in grads.items():
+            want = ref[path]
+            if want is None:
+                r["unused"].append(path)
+            elif g is not None:
+                r["leaves"][path] = (float(((g.double() - want.double()) ** 2).sum()),
+                                     float((want.double() ** 2).sum()))
+        if rank == 0 and dtype == torch.float64:
+            ref64 = {p: g for p, g in ref.items() if g is not None}
+        elif rank == 0:
+            num = sum(float(((ref[p].double() - g) ** 2).sum()) for p, g in ref64.items())
+            den = sum(float((g ** 2).sum()) for g in ref64.values())
+            res["move"] = (num / den) ** 0.5
+            ref64 = None
+        del ref, grads
+        res[name] = r
+        dist.barrier(group)
+    torch.cuda.empty_cache()
+    try:
+        pipe_grad(cfg, device, model, pipeline=(group, PIPE_GRAD_MICRO), kernels=True)
+        res["kernels_error"] = None
+    except RuntimeError as e:
+        res["kernels_error"] = str(e)
+    del model
+    torch.cuda.empty_cache()
+    dist.barrier(group)
+    return res
+
+
+def par_check_pipe_grad(ranks, card, bad):
+    """Print and check the pipe backward of every rank against one process's."""
+    g = [r["pipe_grad"] for r in ranks]
+    move = g[0]["move"]
+    for name, bound in (("f64", PIPE_GRAD_F64_RTOL), ("f32", PIPE_GRAD_F32_FACTOR * move)):
+        per = [x[name] for x in g]
+        paths = set().union(*(x["leaves"] for x in per))
+        unused = set(per[0]["unused"])
+        # a leaf on several ranks (outside stage 2's pairs) counts with its worst rank's error
+        num = sum(max(x["leaves"][p][0] for x in per if p in x["leaves"]) for p in paths)
+        den = sum(next(x["leaves"][p][1] for x in per if p in x["leaves"]) for p in paths)
+        err = (num / den) ** 0.5
+        each = [(sum(v[0] for v in x["leaves"].values())
+                 / sum(v[1] for v in x["leaves"].values())) ** 0.5 for x in per]
+        print(f"parallel pipe grad {name}: {len(ranks)} ranks, {PIPE_GRAD_FRAMES} rows (one clip's "
+              f"first segments) in {PIPE_GRAD_MICRO} microbatches, kernels off: world {max(x['seconds'] for x in per):.3f} s "
+              f"(forward and backward), peak {[round(x['peak'] / 2**30, 3) for x in per]} GiB, loss "
+              f"{per[0]['loss']:.9e} (one process {per[0]['ref_loss']:.9e}, on every rank at once "
+              f"{max(x['ref_seconds'] for x in per):.3f} s, a rank's peak then "
+              f"{max(x['ref_peak'] for x in per) / 2**30:.3f} GiB); relative L2 from one process "
+              f"over {len(paths)} leaves of {'/'.join(PIPE_GRAD_PARTS)} {err:.3e}, each rank's "
+              f"{[f'{e:.3e}' for e in each]} (bound {bound:.3e}"
+              + (f" = {PIPE_GRAD_F32_FACTOR} x one process's own f32 move from f64 {move:.3e}"
+                 if name == "f32" else "") + f"); {len(unused)} leaves unread ({card})",
+              flush=True)
+        if not err <= bound or not all(e <= bound for e in each):
+            bad.append(f"pipe grad {name}: relative L2 {err:.3e} from one process")
+        if any(set(x["unused"]) != unused for x in per) or len(paths) != per[0]["read"]:
+            bad.append(f"pipe grad {name}: {len(paths)} leaves got a gradient on some rank of "
+                       f"{per[0]['read']} the forward reads")
+    errs = [x["kernels_error"] for x in g]
+    print(f"parallel pipe grad kernels on: every rank raised {all(e and 'no backward' in e for e in errs)}"
+          f" ({(errs[0] or 'no error').splitlines()[0][:120]})", flush=True)
+    if not all(e and "no backward" in e for e in errs):
+        bad.append("pipe grad: the forward with the kernels on did not refuse the gradient")
+
+
 def par_evals(mode, cfg, device, mesh_, res):
     """`mode`'s bf16 and float32 eval forwards into res[mode] and
     res[mode + "_f32"], each with this rank's peak memory."""
@@ -4936,7 +5117,9 @@ def par_rank(rank, world, init_file, job, out_dir, results):
         elif job == "tp4":
             par_evals("tp4", cfg, device, M.Mesh({M.DATA_AXIS: 1, M.MODEL_AXIS: world}), res)
         else:
-            par_evals("pipe", cfg, device, M.make_mesh(world, M.PIPE_AXIS), res)
+            pipe = M.make_mesh(world, M.PIPE_AXIS)
+            par_evals("pipe", cfg, device, pipe, res)
+            res["pipe_grad"] = par_pipe_grad(cfg, device, pipe, rank, world)
         dist.destroy_process_group()
         results.put((rank, "ok", res))
     except BaseException:
@@ -5145,6 +5328,7 @@ def run_parallel(device="cuda"):
         launches["pipe"] = par_check_eval("pipe", ranks, one, drift, bad)
         if any(r[k]["pipelined"] != [2] for r in ranks for k in ("pipe", "pipe_f32")):
             bad.append("pipe: stage 2 was not pipelined")
+        par_check_pipe_grad(ranks, card, bad)
 
     # ave_main through the entry point in a world of one rank under NCCL
     t0 = time.perf_counter()

@@ -31,6 +31,7 @@ U8P = ctypes.POINTER(ctypes.c_uint8)
 F32P = ctypes.POINTER(ctypes.c_float)
 PATHS = ctypes.POINTER(ctypes.c_char_p)
 ARGTYPES = {
+    "dgsct_resize_normalize": [U8P, ctypes.c_int, ctypes.c_int, F32P, ctypes.c_int, F32P, F32P],
     "dgsct_load_jpeg_batch": [PATHS, ctypes.c_int, F32P, ctypes.c_int, F32P, F32P],
     "dgsct_load_jpeg_batch_u8": [PATHS, ctypes.c_int, U8P, ctypes.c_int],
     "dgsct_load_jpeg_batch_yuv420": [PATHS, ctypes.c_int, U8P, U8P, ctypes.c_int],
@@ -117,6 +118,22 @@ def _u8(a: np.ndarray):
 
 def _f32(a: np.ndarray):
     return a.ctypes.data_as(F32P)
+
+
+def resize_normalize(img: np.ndarray, out_size: int, mean, std) -> np.ndarray:
+    """One decoded image (H, W, 3) uint8 -> (out, out, 3) float32: antialiased
+    bicubic resize (PIL-compatible) and normalize by `mean` and `std`."""
+    lib = _lib()
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"resize_normalize takes (H, W, 3) uint8, not {img.shape}")
+    dst = np.empty((out_size, out_size, 3), np.float32)
+    mean = np.ascontiguousarray(mean, np.float32)
+    std = np.ascontiguousarray(std, np.float32)
+    if lib.dgsct_resize_normalize(_u8(img), img.shape[0], img.shape[1], _f32(dst), out_size,
+                                  _f32(mean), _f32(std)) != 0:
+        raise RuntimeError("native resize failed")
+    return dst
 
 
 def load_jpeg_batch(paths: Sequence[str], out_size: int, mean, std) -> np.ndarray:

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from ..basic import layer_norm
-from .build import CudaKernel, I, P, check_cuda, check_shape, dtype_code, ptr, stream_of
+from .build import (CudaKernel, I, P, check_cuda, check_shape, dtype_code, ptr, refuse_grad,
+                    stream_of)
 
 KERNEL = CudaKernel("adapter_bottleneck", "k3_adapter_bottleneck", [P] * 10 + [I] * 6 + [P])
 
@@ -33,7 +34,9 @@ def bottleneck_rows(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, *, has_ln1):
     """K3 on a CUDA tensor; the plain version on a CPU tensor. x (rows, C);
     wd (g, C/g, go); bd (g*go,); wu (g, go, C/g); bu, ln* (C,). The kernel
     raises for what its C entry refuses (in bfloat16: C/g not a multiple of 8,
-    g * ceil(go/8) > 32, an operand not 16-byte aligned)."""
+    g * ceil(go/8) > 32, an operand not 16-byte aligned), and under grad mode
+    for an operand that requires grad (`build.refuse_grad`)."""
+    refuse_grad("bottleneck_rows", x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b)
     kind = x.device.type
     if kind == "cpu":
         return bottleneck_rows_plain(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b,

@@ -16,7 +16,7 @@ import torch
 
 from ..basic import layer_norm
 from .build import (CudaKernel, I, P, check_aligned, check_cuda, check_shape, dtype_code,
-                    ptr, stream_of)
+                    ptr, refuse_grad, stream_of)
 
 KERNEL = CudaKernel("block_attention", "k2_block_attention", [P] * 14 + [I] * 8 + [P])
 
@@ -62,7 +62,10 @@ def fused_attn_half_block(x, wqkv, bqkv, wproj, bproj, bias, ln_scale, ln_bias,
                           mask=None, logit_scale=None, *, kind, heads, ws):
     """K2 on a CUDA tensor; the plain version on a CPU tensor. x: (B, H, W, C);
     wqkv (C, 3C); bqkv (3C,); wproj (C, C); bproj, ln_scale, ln_bias (C,);
-    bias (heads, N, N); mask (nW, N, N) or None; logit_scale (heads,) for v2."""
+    bias (heads, N, N); mask (nW, N, N) or None; logit_scale (heads,) for v2.
+    Under grad mode an operand that requires grad raises (`build.refuse_grad`)."""
+    refuse_grad("fused_attn_half_block", x, wqkv, bqkv, wproj, bproj, bias, ln_scale, ln_bias,
+                mask, logit_scale)
     if x.device.type == "cpu":
         return fused_attn_half_block_plain(x, wqkv, bqkv, wproj, bproj, bias, ln_scale,
                                            ln_bias, mask, logit_scale, kind=kind,

@@ -138,6 +138,20 @@ def dtype_code(t) -> int:
     return code
 
 
+def refuse_grad(name: str, *operands):
+    """Raise where autograd would need a gradient through a kernel: grad mode
+    on and an operand (None: absent) that requires grad. No kernel has a
+    backward, and a kernel's output would carry no `grad_fn`, so everything
+    upstream would silently get no gradient; `jax.grad` through the Pallas
+    kernels raises as well. Runs on every device, the CPU route included, so
+    both routes refuse alike; a caller that needs a gradient takes the plain
+    version (`kernels=False`)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+        raise RuntimeError(f"{name}: the kernel has no backward, and an operand requires grad; "
+                           f"run under torch.no_grad() / inference_mode(), or take the plain "
+                           f"path (kernels=False) to differentiate")
+
+
 def check_cuda(name: str, ref, **tensors):
     """Every operand lies on ref's card, has ref's dtype and is contiguous.
     One cheap test per operand first: the wrappers run it on every call."""

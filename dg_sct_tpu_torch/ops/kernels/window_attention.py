@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from .build import (CudaKernel, I, P, check_aligned, check_cuda, check_shape, dtype_code,
-                    ptr, stream_of)
+                    ptr, refuse_grad, stream_of)
 
 KERNEL = CudaKernel("window_attention", "k1_window_attention",
                     [P, P, P, P, P, P, I, I, I, I, I, I, P])
@@ -34,7 +34,9 @@ def window_attention_plain(q, k, v, bias, mask=None, *, nW=1):
 
 
 def window_attention(q, k, v, bias, mask=None, *, nW=1):
-    """K1 on a CUDA tensor; the plain version on a CPU tensor."""
+    """K1 on a CUDA tensor; the plain version on a CPU tensor. Under grad mode
+    an operand that requires grad raises (`build.refuse_grad`)."""
+    refuse_grad("window_attention", q, k, v, bias, mask)
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, mask, nW=nW)
     if q.device.type != "cuda":

@@ -173,13 +173,16 @@ def attention_v2_init(init: Init, dim, num_heads):
 
 
 def _v2_bias(params, ws, heads, pretrained_ws):
-    """16 sigmoid(CPB MLP(log coords)) gathered to (heads, N, N), float32."""
+    """16 sigmoid(CPB MLP(log coords)) gathered to (heads, N, N), float32 (float64
+    for float64 weights: a float32 MLP would round a float64 step's gradient
+    of its weights to float32's precision)."""
     N = ws * ws
-    dev = params["cpb_fc2"]["kernel"].device
-    f = lambda p: {k: v.to(torch.float32) for k, v in p.items()}
-    table = constant(log_cpb_coords_table, ws, ws, pretrained_ws, device=dev)
+    w = params["cpb_fc2"]["kernel"]
+    dt = torch.promote_types(w.dtype, torch.float32)
+    f = lambda p: {k: v.to(dt) for k, v in p.items()}
+    table = constant(log_cpb_coords_table, ws, ws, pretrained_ws, device=w.device).to(dt)
     cpb = linear(f(params["cpb_fc2"]), torch.relu(linear(f(params["cpb_fc1"]), table)))
-    idx = constant(relative_position_index, ws, ws, device=dev).reshape(-1)
+    idx = constant(relative_position_index, ws, ws, device=w.device).reshape(-1)
     return 16.0 * torch.sigmoid(cpb[idx].reshape(N, N, heads).permute(2, 0, 1))
 
 

@@ -253,3 +253,74 @@ def gpipe_cases(rank, world, cases):
             continue
         results.append({"got": got, "ref": ref})
     return results
+
+
+def gpipe_grad_cases(rank, world, cases, stages_np, xs_np, pre_np):
+    """The backward through gpipe over the whole world, on the loss every
+    rank computes from its replicated outputs, for each case of `cases`:
+    "stacked" and "list" (the MLP stages stacked or as a list, loss sum(y^2)),
+    "tree" (`pair_body`'s tree carry over (xs, xs / 2), loss sum(a^2) + 0.5
+    sum(b^2)),
+    "frozen" (the list with stage 1's leaves not requiring grad),
+    "frozen_first" (the list with stage 0's leaves and the microbatches not
+    requiring grad, so that rank 0 holds nothing that does), "pre" (the
+    microbatches made on every rank as tanh(x @ w0) from a leaf w0). `stages_np`
+    a list of {"w1", "w2"} numpy stages, `xs_np` the microbatches (n_micro, mb,
+    d), `pre_np` w0 (d, d). -> per case: each stage's gradient (None where
+    this rank got none), the microbatches' gradient, and w0's for "pre"."""
+    from dg_sct_tpu_torch.parallel import pipeline as PP
+
+    results = []
+    for case in cases:
+        frozen = {"frozen": 1, "frozen_first": 0}.get(case)
+        stages = [{k: torch.tensor(v, requires_grad=i != frozen) for k, v in st.items()}
+                  for i, st in enumerate(stages_np)]
+        xs = torch.tensor(xs_np, requires_grad=case != "frozen_first")
+        w0 = torch.tensor(pre_np, requires_grad=True)
+        if case == "tree":
+            mbs = [xs, torch.tensor(0.5 * xs_np, requires_grad=True)]
+            ya, yb = PP.gpipe(pair_body, stages, mbs, None)
+            loss = (ya ** 2).sum() + 0.5 * (yb ** 2).sum()
+        else:
+            arg = PP.stack_stages(stages) if case == "stacked" else stages
+            mb = torch.tanh(xs @ w0) if case == "pre" else xs
+            loss = (PP.gpipe(mlp_body, arg, mb, None) ** 2).sum()
+        loss.backward()
+        out = {"stages": [{k: t.grad for k, t in st.items()} for st in stages],
+               "xs": xs.grad, "loss": float(loss.detach())}
+        if case == "tree":
+            out["xs_b"] = mbs[1].grad
+        if case == "pre":
+            out["w0"] = w0.grad
+        results.append(out)
+    return results
+
+
+def ave_pipe_grad(rank, world, pcfg, jp, js, wave, images, n_micro, weights):
+    """The port's pipelined AVE eval forward over a 1-D pipe of the world,
+    differentiated with the kernels off: every floating param leaf requires
+    grad, the loss is sum(weights[k] * outputs[k]) over the keys of
+    `weights`. -> the loss, each leaf's gradient by path (None where this
+    rank got none), the pipelined stages, and the error the same forward
+    raised with the kernels on."""
+    from dg_sct_tpu_torch.models import ave
+    from dg_sct_tpu_torch.parallel import mesh
+    from dg_sct_tpu_torch.utils.tree import tree_paths
+    from dg_sct_tpu_torch.weights import from_jax
+
+    pp, ps = from_jax(jp, js, pcfg, device="cpu")
+    leaves = [(p, t.requires_grad_()) for p, t in tree_paths(pp) if t.is_floating_point()]
+    m = mesh.make_mesh(world, mesh.PIPE_AXIS)
+    run = lambda kernels: ave.forward(pp, ps, wave, images, pcfg, kernels=kernels, device="cpu",
+                                      pipeline=(m.group(mesh.PIPE_AXIS), n_micro))
+    out = run(False)
+    loss = sum((torch.as_tensor(w) * out[k]).sum() for k, w in weights.items())
+    loss.backward()
+    res = {"loss": float(loss.detach()), "pipelined": list(out["pipelined_stages"]),
+           "grads": {"/".join(map(str, p)): t.grad for p, t in leaves}}
+    try:
+        run(True)
+        res["kernels_error"] = None
+    except RuntimeError as e:
+        res["kernels_error"] = str(e)
+    return res
