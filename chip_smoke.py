@@ -21,7 +21,11 @@ Phases, each fatal on failure:
      give each shape's times, then `k4 sums:` one forward's. Times as the
      host issues the calls (ms) and, for kernel and
      yardsticks, the card's time alone (device_ms). The float32 checks of K1
-     and K2 run after a launch that leaves NaN in shared memory. K3 also at
+     and K2 run after a launch that leaves NaN in shared memory. `k3 f32:`
+     lines give K3's float32 main-path shapes (3xTF32 on the tensor cores)
+     beside a planted fault, the plain version with both products' operands
+     rounded to TF32 (TF32 alone), each against the plain version on the
+     same inputs as error over TOL, then `k3 f32 sums:` one forward's. K3 also at
      shapes off the main path: ragged row tiles, no LN_before, four groups of
      24 or 48 channels; K1 and K2 also at phase 8's shapes (10 frames a
      forward), checked in both dtypes, not timed; K3 also at each of phase
@@ -619,6 +623,18 @@ def composed_bottleneck(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, *, has_ln1):
     return F.layer_norm(o.transpose(0, 1).reshape(rows, C), (C,), ln2s, ln2b, eps=1e-5)
 
 
+def k3_inputs(key, dtype, gen):
+    """K3's operands at (rows, C, groups, go, has_ln1) on the card: x, wd, bd,
+    wu, bu, ln1s, ln1b, ln2s, ln2b in `dtype`."""
+    rows, C, g, go, _ = key
+    rnd = lambda *s, scale=1.0: (torch.randn(s, device="cuda", generator=gen) * scale).to(dtype)
+    x = rnd(rows, C)
+    wd, wu = rnd(g, C // g, go, scale=(C // g) ** -0.5), rnd(g, go, C // g, scale=go ** -0.5)
+    bd, bu = rnd(g * go, scale=0.1), rnd(C, scale=0.1)
+    ln = [(1.0 + rnd(C, scale=0.1).float()).to(dtype), rnd(C, scale=0.1)] * 2
+    return (x, wd, bd, wu, bu, *ln)
+
+
 def int8_inputs(key, dtype, gen):
     """K4's operands at (rows, K, N) on the card: x, the quantized weight (the
     layout `quantize_linear` makes), kscale, a static scale under which a few
@@ -752,11 +768,8 @@ def run_case(name, key, dtype, gen, grad=False):
         return (lambda: K4.quantize_rows(x, ascale), lambda: K4.quantize_rows_plain(x, ascale),
                 None, None, 2 * rows * K, it * rows * K + 4 + rows * K + 8 * rows)
     rows, C, g, go, has_ln1 = key
-    x = rnd(rows, C).requires_grad_(grad)
-    wd, wu = rnd(g, C // g, go, scale=(C // g) ** -0.5), rnd(g, go, C // g, scale=go ** -0.5)
-    bd, bu = rnd(g * go, scale=0.1), rnd(C, scale=0.1)
-    ln = [(1.0 + rnd(C, scale=0.1).float()).to(dtype), rnd(C, scale=0.1)] * 2
-    args = (x, wd, bd, wu, bu, *ln)
+    args = k3_inputs(key, dtype, gen)
+    args[0].requires_grad_(grad)
     flops = 4 * rows * C * go
     nbytes = it * (2 * rows * C + 2 * C * go + g * go + (5 if has_ln1 else 3) * C)
     return (lambda: K3.bottleneck_rows(*args, has_ln1=has_ln1),
@@ -859,6 +872,8 @@ def check_kernels(cfg, only=None):
             rows.append(row)
             print("kernel", json.dumps(row), flush=True)
     print_k4(rows)
+    if any(r["name"] == "adapter_bottleneck" for r in rows):
+        print_k3_f32(rows)
     if not only or "adapter_bottleneck" in only or "avqa" in only:
         rows += check_avqa_k3(gen)
     if not only or {"adapter_bottleneck", "pretrain", "pretrain_train"} & set(only):
@@ -909,6 +924,64 @@ def print_k4(rows):
                  if dtype == "bfloat16" else "")
               + f"; max abs err {max(max(r['max_abs_err'], r['dynamic_err']) for r in mine)}",
               flush=True)
+
+
+def tf32_round(t):
+    """float32 values rounded to TF32 (10 mantissa bits, to nearest, ties away)."""
+    return ((t.float().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def k3_planted_tf32(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, *, has_ln1):
+    """A planted fault: K3's plain float32 version with both products' operands
+    rounded to TF32 (one TF32 product, as TF32 alone would give), to read
+    beside the kernel whether TOL tells 3xTF32 from it. Not in the port."""
+    from dg_sct_tpu_torch.ops.basic import layer_norm
+
+    rows, C = x.shape
+    g, gi, go = wd.shape
+    z = layer_norm({"scale": ln1s, "bias": ln1b}, x) if has_ln1 else x
+    h = torch.relu(torch.einsum("rgi,gio->rgo", tf32_round(z).reshape(rows, g, gi), tf32_round(wd))
+                   + bd.reshape(g, go))
+    o = torch.einsum("rgo,goi->rgi", tf32_round(h), tf32_round(wu)) + bu.reshape(g, gi)
+    return layer_norm({"scale": ln2s, "bias": ln2b}, o.reshape(rows, C))
+
+
+def print_k3_f32(rows):
+    """`k3 f32:` one line a float32 main-path shape: the kernel and the planted
+    1xTF32 fault against the plain version on the same inputs (their own
+    generator), as max abs error and worst error over TOL; then `k3 f32
+    sums:` over one B=2 forward's calls: device and issued ms, the composed
+    calls, the bound, the worst error over TOL of each."""
+    from dg_sct_tpu_torch.ops.kernels import adapter_bottleneck as K3
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    mine = [r for r in rows if r["name"] == "adapter_bottleneck" and r["dtype"] == "float32"
+            and r["per_forward"]]
+    worst = {"kernel": 0.0, "planted": 0.0}
+    for r in mine:
+        key = tuple(r["case"])
+        args = k3_inputs(key, torch.float32, gen)
+        ref = K3.bottleneck_rows_plain(*args, has_ln1=key[-1])
+        got = {"kernel": K3.bottleneck_rows(*args, has_ln1=key[-1]),
+               "planted": k3_planted_tf32(*args, has_ln1=key[-1])}
+        read = {k: compare(v, ref, torch.float32) for k, v in got.items()}
+        for k, (_, w) in read.items():
+            worst[k] = max(worst[k], w)
+        print(f"k3 f32: {key} x{r['per_forward']}: device_ms {r['kernel_device_ms']:.4f}, ms "
+              f"{r['kernel_ms']:.4f}, composed device_ms {r['composed_device_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f}; max abs err, error over TOL: kernel "
+              f"{read['kernel'][0]:.3e}, {read['kernel'][1]:.3f}; planted 1xTF32 "
+              f"{read['planted'][0]:.3e}, {read['planted'][1]:.3f}", flush=True)
+    tot = lambda k: sum(r["per_forward"] * r[k] for r in mine)
+    print(f"k3 f32 sums: one B={BATCH} forward's {sum(r['per_forward'] for r in mine)} calls at "
+          f"{len(mine)} shapes: device {tot('kernel_device_ms'):.4f} ms, issued "
+          f"{tot('kernel_ms'):.4f} ms; composed {tot('composed_device_ms'):.4f} / "
+          f"{tot('composed_ms'):.4f} ms (device / issued); bound {tot('bound_ms'):.4f} ms; worst "
+          f"error over TOL {TOL[torch.float32]}: kernel {worst['kernel']:.3f}, planted 1xTF32 "
+          f"{worst['planted']:.3f}", flush=True)
+    if worst["kernel"] > 1.0:
+        raise AssertionError(f"K3 float32: error {worst['kernel']:.3f} x TOL")
 
 
 def check_avqa_k3(gen):

@@ -13,11 +13,12 @@
 // What bounds it on this card: bytes. The two grouped products cost C^2 / 4
 // FLOPs per row (a group's bottleneck is only C / 16 wide) against 2 C
 // elements of x and out, far below the card's ratio of operations to bytes.
+// What holds a tile back in practice is each tile reading all of Wd and Wu
+// (590 KB each in float32 at C = 1536) and the latency of its serial phases.
 //
-// Design: one block per tile of 16 rows; the ragged last tile is masked, with
-// no padding copy.
-//   bfloat16 (the served type): the two grouped products run on bf16
-//   mma.sync (m16n8k16, float32 sums). The x tile and the per-channel
+// Design: the ragged last tile is masked, with no padding copy.
+//   bfloat16 (the served type): one block per tile of 16 rows; the two
+//   grouped products run on bf16 mma.sync (m16n8k16, float32 sums). The x tile and the per-channel
 //   vectors arrive by one cp.async group, so a tile waits for device memory
 //   once; z is made in place as bf16 over the first half of the o tile. The
 //   LN phases give each warp two rows at once (two independent chains), or
@@ -30,10 +31,18 @@
 //   go = 3, 6 or 12 weights are not 16-byte aligned. go is padded to 8
 //   (down) and 16 (up) columns of zeros; where C/G is an odd multiple of 8,
 //   a group's last k-step is padded with zero weights.
-//   float32: one warp per row takes LN_before and LN_post; each thread owns
-//   one output column of each product, reads that column's weights from L2
-//   once per tile and applies them to the 16 rows in registers (scalar FMA);
-//   z, then o, in a float32 tile.
+//   float32: both products on the TF32 tensor cores at float32 accuracy
+//   (3xTF32 mma.sync m16n8k8: each operand split into TF32 halves, the
+//   small x small product dropped, as K1 and K2 in float32). Nothing is
+//   rounded between the steps. Tiles of 16, 32 or 64 rows (m-tiles sharing
+//   each weight fragment, split once); where rows are few,
+//   a cluster of two CTAs a tile, each on half the groups, the rows'
+//   LayerNorm sums added through distributed shared memory. Every warp
+//   streams the weight rows of its own output tiles through its own ring of
+//   cp.async chunks and waits only on them; the down product is split by k
+//   between warps where its partial sums fit over z (Tf32Plan).
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 #include "tensor_core.cuh"
@@ -44,122 +53,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;
-
-template <typename T, bool HAS_LN1>
-__global__ void __launch_bounds__(kThreads)
-bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ wd,
-                  const T* __restrict__ bd, const T* __restrict__ wu,
-                  const T* __restrict__ bu, const T* __restrict__ ln1s,
-                  const T* __restrict__ ln1b, const T* __restrict__ ln2s,
-                  const T* __restrict__ ln2b, T* __restrict__ out, int rows, int C,
-                  int G, int go) {
-  extern __shared__ float smem[];
-  const int gi = C / G, H = G * go;
-  float* zs = smem;               // kRows x C: z, later o
-  float* hs = zs + kRows * C;     // kRows x H
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-
-  // ---- z = LN_before(x), rounded to x's type --------------------------------------
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int gr = row0 + r;
-    float* zr = zs + r * C;
-    if (gr >= rows) {
-      for (int c = lane; c < C; c += 32) zr[c] = 0.f;
-      continue;
-    }
-    const T* xr = x + static_cast<size_t>(gr) * C;
-    for (int c = lane; c < C; c += 32) zr[c] = to_f(xr[c]);
-    if (HAS_LN1) {
-      __syncwarp();
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += zr[c];
-      const float m = warp_sum(s) / C;
-      float s2 = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = zr[c] - m;
-        s2 += d * d;
-      }
-      const float rs = rsqrtf(warp_sum(s2) / C + 1e-5f);
-      for (int c = lane; c < C; c += 32)
-        zr[c] = round_to<T>((zr[c] - m) * rs * to_f(ln1s[c]) + to_f(ln1b[c]));
-    }
-  }
-  __syncthreads();
-
-  // ---- h = ReLU(z_g . Wd[g] + bd), one output column per thread -------------------
-  for (int col = tid; col < H; col += kThreads) {
-    const int g = col / go, j = col - g * go;
-    const T* wcol = wd + static_cast<size_t>(g) * gi * go + j;
-    const float* zg = zs + g * gi;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int i = 0; i < gi; ++i) {
-      const float w = to_f(wcol[static_cast<size_t>(i) * go]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(zg[r * C + i], w, acc[r]);
-    }
-    const float b = to_f(bd[col]);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) hs[r * H + col] = round_to<T>(fmaxf(acc[r] + b, 0.f));
-  }
-  __syncthreads();
-
-  // ---- o = h_g . Wu[g] + bu, written over z ----------------------------------------
-  for (int col = tid; col < C; col += kThreads) {
-    const int g = col / gi, c = col - g * gi;
-    const T* wcol = wu + static_cast<size_t>(g) * go * gi + c;
-    const float* hg = hs + g * go;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int j = 0; j < go; ++j) {
-      const float w = to_f(wcol[static_cast<size_t>(j) * gi]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hg[r * H + j], w, acc[r]);
-    }
-    const float b = to_f(bu[col]);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) zs[r * C + col] = acc[r] + b;
-  }
-  __syncthreads();
-
-  // ---- out = LN_post(o) -------------------------------------------------------------
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int gr = row0 + r;
-    if (gr >= rows) continue;
-    const float* orow = zs + r * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += orow[c];
-    const float m = warp_sum(s) / C;
-    float s2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = orow[c] - m;
-      s2 += d * d;
-    }
-    const float rs = rsqrtf(warp_sum(s2) / C + 1e-5f);
-    T* dst = out + static_cast<size_t>(gr) * C;
-    for (int c = lane; c < C; c += 32)
-      dst[c] = from_f<T>((orow[c] - m) * rs * to_f(ln2s[c]) + to_f(ln2b[c]));
-  }
-}
-
-template <typename T, bool HAS_LN1>
-int launch(const void* x, const void* wd, const void* bd, const void* wu, const void* bu,
-           const void* ln1s, const void* ln1b, const void* ln2s, const void* ln2b,
-           void* out, int rows, int C, int G, int go, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRows * (C + G * go);
-  auto kern = bottleneck_kernel<T, HAS_LN1>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<(rows + kRows - 1) / kRows, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wd), static_cast<const T*>(bd),
-      static_cast<const T*>(wu), static_cast<const T*>(bu), static_cast<const T*>(ln1s),
-      static_cast<const T*>(ln1b), static_cast<const T*>(ln2s), static_cast<const T*>(ln2b),
-      static_cast<T*>(out), rows, C, G, go);
-  return cudaGetLastError();
-}
 
 // ================================ bfloat16: mma.sync =================================
 
@@ -186,7 +79,7 @@ struct MmaPlan {
   int nvec;  // bu, ln2s, ln2b, ln1s, ln1b (C each), then bd (G * go, padded to 8)
 };
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // The strides are 4 words mod 32 (z), 8 mod 32 (o; an up slab row) or spread
 // over 8 rows (h), so that ldmatrix rows, fragment stores and the B loads of
@@ -573,13 +466,652 @@ int launch_mma(const void* x, const void* wd, const void* bd, const void* wu, co
                                         plan, stream);
 }
 
+// ============================== float32: 3xTF32 mma.sync ==============================
+
+// Shared-memory geometry of one (C, G, go) on CL CTAs a tile of 16 M rows (a
+// thread-block cluster when CL = 2: each CTA takes G / CL groups), in floats.
+// Every row stride puts the fragment loads of a warp on distinct banks.
+//
+// The products' work, every warp on its own. Down product: wpg warps a
+// group, kss k slices by wpg / kss parts of its gok / 8 output tiles (tpw
+// tiles a warp); the slices' partial sums meet in shared memory over z once
+// z is read (kss = 1: each warp holds its tiles' sums over all k rows, at
+// most 12 / M tiles a pass). Up product: items of uw columns of one group,
+// warp w taking items w, w + 8, ... A warp streams the weight rows its
+// tiles need, chunks of kc k-steps (8 kc rows) by its columns, through its own
+// ring of kF32Depth slots by cp.async, and waits on nothing but its own
+// copies.
+struct Tf32Plan {
+  int C, gi, go;
+  int gl;     // groups a CTA takes (G / CL)
+  int cl;     // channels a CTA takes (gl * gi)
+  int gik;    // gi padded to the k-step (8)
+  int gok;    // go padded to the k-step (8): h's columns, the up product's k
+  int ost;    // row stride of the x / z / o tile (4 mod 8, past the last k-step's reads)
+  int hst;    // row stride of h (4 mod 8)
+  int nvec;   // ln1s, ln1b, ln2s, ln2b, bu (cl each), bd (gl x gok), padded to 4
+  int wpg;    // warps a group in the down product (8 / gl, or 1 when gl is more)
+  int kss;    // k slices of a group's down product (a divisor of wpg)
+  int tpw;    // down tiles a warp (its group's gok / 8 over wpg / kss warps)
+  int dw;     // a down pass's columns: 8 x a tile count (kTileCounts) for tpw, at most
+              // 12 / M tiles, narrowed to fit a slot
+  int kcd;    // k-steps of a down chunk
+  int uw;     // columns of an up item: 8 x a tile count, at most 12 / M tiles
+  int nper;   // up items a group (ceil(gi / uw))
+  int kcu;    // k-steps of an up chunk
+  int slot;   // floats of a ring slot
+  int has_ln1;     // LN_before
+  int vx, vd, vu;  // 16-byte copies of x and the vectors / Wd / Wu rows; float4 LN phases
+};
+
+constexpr int kF32Depth = 4;      // slots of a warp's ring: three chunks in flight
+constexpr int kSerialSteps = 16;  // k-steps a down tile may take without a k split
+
+int round_up(int a, int b) { return ceil_div(a, b) * b; }
+
+// The tile counts a chunk's products are compiled for (`with_tiles`; 12 / M is
+// one of them): n rounded up to one of them, at most nt_max; and the largest
+// one below n.
+constexpr int kTileCounts[] = {1, 2, 3, 6, 12};
+int tile_count(int n, int nt_max) {
+  for (const int t : kTileCounts)
+    if (t >= n) return std::min(t, nt_max);
+  return nt_max;
+}
+int tile_count_below(int n) {
+  int best = 1;
+  for (const int t : kTileCounts)
+    if (t < n) best = t;
+  return best;
+}
+
+// 8 or 24 mod 32: a B fragment's 4 k rows and 8 columns fall on 32 banks
+__host__ __device__ __forceinline__ int spread_stride(int n) {
+  return n % 32 == 8 || n % 32 == 24 ? n : n + 8;
+}
+
+size_t tf32_smem_bytes(const Tf32Plan& p, int m) {
+  return sizeof(float) * (static_cast<size_t>(16 * m) * (p.ost + 2 * p.gl * p.hst + 2) + p.nvec +
+                          static_cast<size_t>(kWarps) * kF32Depth * p.slot);
+}
+
+// The plan for M m-tiles with ring slots of `slot` floats, the down product
+// in as many k slices as keep a warp's tiles within 12 / M, the slices'
+// partial sums within z's rows and a chunk within a slot; false if it does
+// not fit in `budget` bytes or a slot holds no chunk.
+bool make_tf32_plan(int C, int G, int go, int cl_ctas, int m, int slot, size_t budget,
+                    Tf32Plan& p) {
+  p = Tf32Plan{};
+  const int nt_max = 12 / m;  // 8-column tiles a warp keeps
+  p.C = C, p.gi = C / G, p.go = go;
+  p.gl = G / cl_ctas, p.cl = p.gl * p.gi;
+  p.gik = round_up(p.gi, 8), p.gok = round_up(go, 8);
+  p.ost = round_up(p.cl + p.gik - p.gi, 8) + 4;
+  p.hst = p.gok + 4;
+  p.nvec = round_up(5 * p.cl + p.gl * p.gok, 4);
+  p.slot = slot;
+  p.wpg = p.gl <= kWarps ? kWarps / p.gl : 1;
+  const int ntd = p.gok / 8;
+  // split k only where a warp would run more than kSerialSteps k-steps alone:
+  // below that the partial sums' two barriers cost more than they save
+  for (p.kss = p.gik / 8 > kSerialSteps ? p.wpg : 1; p.kss > 1; --p.kss) {
+    const int tpw = ceil_div(ntd, p.wpg / p.kss);
+    if (p.wpg % p.kss == 0 && tpw <= nt_max && p.kss * p.gl * p.gok <= p.ost &&
+        8 * spread_stride(8 * tile_count(tpw, nt_max)) <= slot)
+      break;
+  }
+  p.tpw = ceil_div(ntd, p.wpg / p.kss);
+  p.dw = 8 * tile_count(p.tpw, nt_max);  // a pass's tiles
+  while (p.dw > 8 && 8 * spread_stride(p.dw) > slot) p.dw = 8 * tile_count_below(p.dw / 8);
+  p.kcd = std::min(p.gik / 8, slot / (8 * spread_stride(p.dw)));
+  // up items: the local columns over the warps, at most nt_max tiles each
+  p.uw = 8 * tile_count(std::min(ceil_div(p.cl, 8 * kWarps), p.gik / 8), nt_max);
+  while (p.uw > 8 && 8 * spread_stride(p.uw) > slot) p.uw = 8 * tile_count_below(p.uw / 8);
+  p.nper = ceil_div(p.gi, p.uw);
+  p.kcu = std::min(p.gok / 8, slot / (8 * spread_stride(p.uw)));
+  return p.kcd >= 1 && p.kcu >= 1 && tf32_smem_bytes(p, m) <= budget;
+}
+
+// W = 4: float4 columns (vx), else 1.
+template <int W> __device__ __forceinline__ void loadw(const float* p, float (&v)[W]) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int W> __device__ __forceinline__ void storew(float* p, const float (&v)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
+}
+
+// Each lane's M rows' sums over their 16 lanes, then, with CL = 2, plus the
+// peer CTA's sums of the same rows through distributed shared memory (`part`,
+// one slot a row; both CTAs add the same two numbers, so they agree bit for
+// bit).
+template <int CL, int M>
+__device__ __forceinline__ void row_sums(float (&s)[M], float* part, int r0, int lane) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+  if constexpr (CL == 2) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    if ((lane & 15) == 0)
+#pragma unroll
+      for (int i = 0; i < M; ++i) part[r0 + 16 * i] = s[i];
+    cluster.sync();
+    const float* peer = cluster.map_shared_rank(part, cluster.block_rank() ^ 1);
+#pragma unroll
+    for (int i = 0; i < M; ++i) s[i] += peer[r0 + 16 * i];
+  }
+}
+
+// LayerNorm of each row of the tile's cl columns over all C channels, float32
+// and two passes (the mean, then the mean square of the deviations), as the
+// TPU kernel and the plain version. 16 lanes a row (rows r0 + 16 i), W
+// columns a lane at a time; sc, sh in shared memory. dst: the tile itself (LN_before,
+// in place) or the output rows.
+template <int CL, int M, int W>
+__device__ __forceinline__ void ln_rows(float* t, const Tf32Plan& p, const float* sc,
+                                        const float* sh, float* dst, size_t dst_ld, int row0,
+                                        int rows, float* part, int warp, int lane) {
+  const int r0 = 2 * warp + (lane >> 4), c0 = W * (lane & 15);
+  float s[M], m[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    s[i] = 0.f;
+#pragma unroll 4
+    for (int c = c0; c < p.cl; c += 16 * W) {
+      float v[W];
+      loadw<W>(t + (r0 + 16 * i) * p.ost + c, v);
+#pragma unroll
+      for (int e = 0; e < W; ++e) s[i] += v[e];
+    }
+  }
+  row_sums<CL, M>(s, part, r0, lane);
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    m[i] = s[i] / p.C;
+    s[i] = 0.f;
+#pragma unroll 4
+    for (int c = c0; c < p.cl; c += 16 * W) {
+      float v[W];
+      loadw<W>(t + (r0 + 16 * i) * p.ost + c, v);
+#pragma unroll
+      for (int e = 0; e < W; ++e) s[i] = fmaf(v[e] - m[i], v[e] - m[i], s[i]);
+    }
+  }
+  row_sums<CL, M>(s, part + 16 * M, r0, lane);
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const float rs = rsqrtf(s[i] / p.C + 1e-5f);
+    const int r = r0 + 16 * i;
+    if (row0 + r >= rows) continue;
+#pragma unroll 4
+    for (int c = c0; c < p.cl; c += 16 * W) {
+      float v[W], g[W], b[W];
+      loadw<W>(t + r * p.ost + c, v);
+      loadw<W>(sc + c, g);
+      loadw<W>(sh + c, b);
+#pragma unroll
+      for (int e = 0; e < W; ++e) v[e] = (v[e] - m[i]) * rs * g[e] + b[e];
+      storew<W>(dst + r * dst_ld + c, v);
+    }
+  }
+}
+
+// x = big + small, each rounded to TF32 (to nearest, ties away, as
+// cvt.rna.tf32.f32) by integer operations: the conversion instruction runs on
+// a quarter-rate pipe, and the products split two weights for three mma.sync.
+// NaN stays NaN in small; only |x| within 2^-11 of FLT_MAX turns to inf.
+__device__ __forceinline__ void split_tf32_int(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;
+}
+
+template <int R> __device__ __forceinline__ SplitFrag<R> split_frag(const float (&v)[R]) {
+  SplitFrag<R> f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) split_tf32_int(v[i], f.big[i], f.small[i]);
+  return f;
+}
+
+// A (16 x 8) fragment of a float32 tile (row stride ld) at its row 0 and
+// k-column 0, split; or of a tile stored split (h), as it is.
+__device__ __forceinline__ SplitFrag<4> a_frag(const float* t, int ld, int gq, int t4) {
+  const float* a = t + gq * ld + t4;
+  const float v[4] = {a[0], a[8 * ld], a[4], a[8 * ld + 4]};
+  return split_frag(v);
+}
+__device__ __forceinline__ SplitFrag<4> a_frag(const uint32_t* big, const uint32_t* small, int ld,
+                                               int gq, int t4) {
+  SplitFrag<4> a;
+  const int o = gq * ld + t4;
+  a.big[0] = big[o], a.big[1] = big[o + 8 * ld], a.big[2] = big[o + 4], a.big[3] = big[o + 8 * ld + 4];
+  a.small[0] = small[o], a.small[1] = small[o + 8 * ld], a.small[2] = small[o + 4];
+  a.small[3] = small[o + 8 * ld + 4];
+  return a;
+}
+
+// B (8 x 8) fragment of a float32 chunk (row stride ld) at its k row 0 and
+// column 0, split: each weight is read by one warp once a tile and split there,
+// once, for the tile's M m-tiles.
+__device__ __forceinline__ SplitFrag<2> b_frag(const float* b, int ld, int gq, int t4) {
+  const float v[2] = {b[t4 * ld + gq], b[(t4 + 4) * ld + gq]};
+  return split_frag(v);
+}
+
+// A lane's cells of a warp's chunk copies: 16 bytes (or 4) a cell, `cells` a
+// row; lane l takes cells l, l + 32, ... as (row, column) stepped without a
+// division.
+struct ChunkLanes {
+  int r, c, dr, dc, cells, e;
+  __device__ __forceinline__ ChunkLanes(int w, bool vec, int lane) {
+    e = vec ? 4 : 1, cells = w / e;
+    r = lane / cells, c = lane - r * cells, dr = 32 / cells, dc = 32 - dr * cells;
+  }
+};
+
+// 8 kc rows x w columns of a row-major weight (row stride ldb) into a ring slot
+// (row stride spread_stride(w)) by the warp's lanes; zeros past `nrows` rows and
+// `ncols` columns.
+__device__ __forceinline__ void copy_chunk(float* dst, const float* src, size_t ldb, int kc,
+                                           int w, int nrows, int ncols, bool vec,
+                                           const ChunkLanes& l) {
+  const int ws = spread_stride(w);
+  for (int r = l.r, c = l.c; r < 8 * kc;) {
+    const bool ok = r < nrows && l.e * c < ncols;
+    const float* s = src + (ok ? r * ldb + l.e * c : 0);
+    if (vec)
+      cp_async16(dst + r * ws + 4 * c, s, ok);
+    else
+      cp_async4(dst + r * ws + c, s, ok);
+    r += l.dr, c += l.dc;
+    if (c >= l.cells) c -= l.cells, ++r;
+  }
+}
+
+template <int N> struct Tiles {
+  static constexpr int value = N;
+};
+
+// f(Tiles<n>()) for n one of kTileCounts up to NT (make_tf32_plan's widths).
+template <int NT, typename F> __device__ __forceinline__ void with_tiles(int n, F&& f) {
+  if (n == 1) f(Tiles<1>());
+  else if (n == 2) f(Tiles<2>());
+  else if (n == 3) f(Tiles<3>());
+  if constexpr (NT >= 6) {
+    if (n == 6) f(Tiles<6>());
+  }
+  if constexpr (NT >= 12) {
+    if (n == 12) f(Tiles<12>());
+  }
+}
+
+template <int CL, int M>
+__global__ void __launch_bounds__(kThreads, 2)
+bottleneck_kernel_tf32(const float* __restrict__ x, const float* __restrict__ wd,
+                       const float* __restrict__ bd, const float* __restrict__ wu,
+                       const float* __restrict__ bu, const float* __restrict__ ln1s,
+                       const float* __restrict__ ln1b, const float* __restrict__ ln2s,
+                       const float* __restrict__ ln2b, float* __restrict__ out, int rows,
+                       const Tf32Plan p) {
+  constexpr int R = 16 * M, NT = 12 / M, D = kF32Depth;
+  extern __shared__ __align__(16) float smf[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;  // fragment row and column
+  float* ts = smf;                                                   // R x ost: x, z, o
+  uint32_t* hb = reinterpret_cast<uint32_t*>(ts + R * p.ost);        // gl x R x hst: h, big
+  uint32_t* hsm = hb + p.gl * R * p.hst;                             // h, small
+  float* part = reinterpret_cast<float*>(hsm + p.gl * R * p.hst);    // 2 x R: peer's sums
+  float* vec = part + 2 * R;  // ln1s, ln1b, ln2s, ln2b, bu (cl each), bd (gl x gok)
+  float* ring = vec + p.nvec + warp * D * p.slot;                    // this warp's ring
+  int rank = 0;
+  if constexpr (CL == 2) rank = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const int row0 = (blockIdx.x / CL) * R;
+  const int C = p.C, gi = p.gi, go = p.go, cl = p.cl, c0 = rank * cl, g0 = rank * p.gl;
+  const int ntd = p.gok / 8, spg = p.gik / 8;
+
+  // ---- this warp's chunks: down ones, then up ones ------------------------------------
+  // down: groups dg (+ 8 a when gl is more than 8); k-steps [dk0, dk1)
+  // (k slice ds of kss) of tiles [dt0, dt1), in passes of dw / 8 tiles (one when kss > 1)
+  const bool dgrp = p.gl <= kWarps;
+  const int dg = dgrp ? warp / p.wpg : warp, dj = dgrp ? warp % p.wpg : 0, ds = dj % p.kss;
+  const int kper = ceil_div(spg, p.kss);
+  const int dk0 = min(ds * kper, spg), dk1 = min(dk0 + kper, spg);
+  const int dt0 = min(dj / p.kss * p.tpw, ntd), dt1 = min(dt0 + p.tpw, ntd);
+  const int dgroups = dg < p.gl ? (dgrp ? 1 : ceil_div(p.gl - warp, kWarps)) : 0;
+  const int dpasses = ceil_div(dt1 - dt0, p.dw / 8), dchunks = ceil_div(dk1 - dk0, p.kcd);
+  const int nqd = dt1 > dt0 && dk1 > dk0 ? dgroups * dpasses * dchunks : 0;
+  // up: items warp + 8 a, each its group's k rows in chunks
+  const int uitems = p.gl * p.nper, uchunks = ceil_div(ntd, p.kcu);
+  const int nqu = warp < uitems ? ceil_div(uitems - warp, kWarps) * uchunks : 0;
+
+  // A warp's chunks in order, its down segments (a pass over a group's k-steps)
+  // then its up items, stepped by a cursor: a division only where a segment begins.
+  const int dsegs = nqd > 0 ? dgroups * dpasses : 0;
+  const int nsegs = dsegs + (warp < uitems ? ceil_div(uitems - warp, kWarps) : 0);
+  struct Chunk {
+    int g, k0, kc, t0, nt;  // group, first k-step, k-steps; first tile, tiles
+    bool last;              // the last chunk of its pass or item
+  };
+  struct Cursor {
+    int q, seg, kk, nk, step, kend;  // chunk, segment, its chunk and chunks, k-steps a chunk
+    Chunk c;
+  };
+  auto begin = [&](Cursor& u) {  // u.seg's first chunk
+    u.kk = 0;
+    if (u.seg < dsegs) {
+      const int a = u.seg / dpasses;
+      u.c.g = dgrp ? dg : warp + kWarps * a;
+      u.c.t0 = dt0 + p.dw / 8 * (u.seg - a * dpasses), u.c.nt = min(p.dw / 8, dt1 - u.c.t0);
+      u.c.k0 = dk0, u.step = p.kcd, u.kend = dk1, u.nk = dchunks;
+    } else if (u.seg < nsegs) {
+      const int it = warp + kWarps * (u.seg - dsegs);
+      u.c.g = it / p.nper;
+      u.c.t0 = (it - u.c.g * p.nper) * p.uw / 8, u.c.nt = min(p.uw / 8, spg - u.c.t0);
+      u.c.k0 = 0, u.step = p.kcu, u.kend = ntd, u.nk = uchunks;
+    }
+    u.c.kc = min(u.step, u.kend - u.c.k0), u.c.last = u.nk == 1;
+  };
+  auto next = [&](Cursor& u) {
+    ++u.q;
+    if (++u.kk < u.nk) {
+      u.c.k0 += u.step;
+      u.c.kc = min(u.step, u.kend - u.c.k0), u.c.last = u.kk == u.nk - 1;
+    } else {
+      ++u.seg;
+      begin(u);
+    }
+  };
+  Cursor ic{0, 0}, cc{0, 0};  // the chunk to issue next, and to compute next
+  begin(ic), begin(cc);
+  const ChunkLanes dl(p.dw, p.vd, lane), ul(p.uw, p.vu, lane);
+  auto issue = [&]() {  // ic's chunk, then ic steps on
+    if (ic.seg < nsegs) {
+      float* dst = ring + (ic.q % D) * p.slot;
+      const Chunk& c = ic.c;
+      const int k = 8 * c.k0;
+      if (ic.seg < dsegs)
+        copy_chunk(dst, wd + (static_cast<size_t>(g0 + c.g) * gi + k) * go + 8 * c.t0, go, c.kc,
+                   p.dw, gi - k, go - 8 * c.t0, p.vd, dl);
+      else
+        copy_chunk(dst, wu + (static_cast<size_t>(g0 + c.g) * go + k) * gi + 8 * c.t0, gi, c.kc,
+                   p.uw, go - k, gi - 8 * c.t0, p.vu, ul);
+      next(ic);
+    }
+    cp_async_commit();  // an empty group past the last chunk keeps the count
+  };
+
+  // ---- the x tile (this CTA's columns; zeros in masked rows and past cl) and the
+  // vectors, then each warp's first chunks ------------------------------------------
+  const int vw = p.vx ? 4 : 1;
+  for_cells(R, p.ost / vw, tid, [&](int r, int c) {
+    const bool ok = row0 + r < rows && vw * c < cl;
+    const float* src = x + (ok ? static_cast<size_t>(row0 + r) * C + c0 + vw * c : 0);
+    if (p.vx)
+      cp_async16(ts + r * p.ost + vw * c, src, ok);
+    else
+      cp_async4(ts + r * p.ost + vw * c, src, ok);
+  });
+  for_cells(p.has_ln1 ? 5 : 3, cl / vw, tid, [&](int v, int c) {
+    const float* src = (v == 0 ? ln2s : v == 1 ? ln2b : v == 2 ? bu : v == 3 ? ln1s : ln1b) + c0;
+    float* dst = vec + ((v + 2) % 5) * cl + vw * c;  // ln1s, ln1b, ln2s, ln2b, bu
+    if (p.vx)
+      cp_async16(dst, src + vw * c);
+    else
+      cp_async4(dst, src + vw * c);
+  });
+  for_cells(p.gl, p.gok, tid, [&](int g, int c) {
+    cp_async4(vec + 5 * cl + g * p.gok + c, bd + (c < go ? (g0 + g) * go + c : 0), c < go);
+  });
+  cp_async_commit();
+#pragma unroll
+  for (int q = 0; q < D - 1; ++q) issue();
+  const float* vln1s = vec;
+  const float* vln1b = vec + cl;
+  const float* vln2s = vec + 2 * cl;
+  const float* vln2b = vec + 3 * cl;
+  const float* vbu = vec + 4 * cl;
+  const float* vbd = vec + 5 * cl;
+
+  // ---- z = LN_before(x), in place (a masked row's z is discarded with its output) --
+  cp_async_wait<D - 1>();
+  __syncthreads();
+  if (p.has_ln1) {
+    if (p.vx)
+      ln_rows<CL, M, 4>(ts, p, vln1s, vln1b, ts, p.ost, 0, R, part, warp, lane);
+    else
+      ln_rows<CL, M, 1>(ts, p, vln1s, vln1b, ts, p.ost, 0, R, part, warp, lane);
+    __syncthreads();
+  }
+
+  float acc[NT][M][4];
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][m][e] = 0.f;
+  };
+  // chunk cc's products over TN tiles (the chunk's width; tiles past the chunk's
+  // own are zeros or another warp's and are not stored): A from `a(kstep, m)`,
+  // B from the ring slot (row stride ws). Straight-line code, so that the
+  // compiler interleaves the tiles' loads and products.
+  auto product = [&](auto tn, const Chunk& c, int ws, auto&& a) {
+    constexpr int TN = decltype(tn)::value;
+    const float* b = ring + (cc.q % D) * p.slot;
+    for (int kk = 0; kk < c.kc; ++kk) {
+      SplitFrag<4> af[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) af[m] = a(c.k0 + kk, m);
+#pragma unroll
+      for (int i = 0; i < TN; ++i) {
+        const SplitFrag<2> bf = b_frag(b + 8 * kk * ws + 8 * i, ws, gq, t4);
+#pragma unroll
+        for (int m = 0; m < M; ++m) mma_3xtf32(acc[i][m], af[m], bf);
+      }
+    }
+  };
+  // h = ReLU(sum + bd), split into its TF32 halves, at (group g, tile row r, column col)
+  auto put_h = [&](int g, int r, int col, float sum) {
+    const int o = (g * R + r) * p.hst + col;
+    split_tf32_int(fmaxf(sum + vbd[g * p.gok + col], 0.f), hb[o], hsm[o]);
+  };
+
+  // ---- h_g = ReLU(z_g . Wd[g] + bd_g), split into TF32 halves (a pad column is 0) --
+  zero();
+  const int wsd = spread_stride(p.dw), wsu = spread_stride(p.uw);
+  with_tiles<NT>(p.dw / 8, [&](auto tn) {
+  for (int q = 0; q < nqd; ++q, next(cc)) {
+    cp_async_wait<D - 2>();
+    __syncwarp();
+    issue();
+    const Chunk& c = cc.c;
+    product(tn, c, wsd, [&](int ks, int m) {
+      return a_frag(ts + 16 * m * p.ost + c.g * gi + 8 * ks, p.ost, gq, t4);
+    });
+    if (c.last && p.kss == 1) {  // the pass's last chunk
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        if (i >= c.nt) break;
+        const int col = 8 * (c.t0 + i) + 2 * t4;
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const int r = 16 * m + gq;
+          put_h(c.g, r, col, acc[i][m][0]), put_h(c.g, r, col + 1, acc[i][m][1]);
+          put_h(c.g, r + 8, col, acc[i][m][2]), put_h(c.g, r + 8, col + 1, acc[i][m][3]);
+        }
+      }
+      zero();
+    }
+  }
+  });
+  if (p.kss > 1) {
+    // the k slices' partial sums over z (every warp is past its last read of z),
+    // then h from their sum, slice by slice
+    __syncthreads();
+    float* ps = ts + (dg * p.kss + ds) * R * p.gok;  // the slice's R x gok partial
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      if (dt0 + i >= dt1 || dg >= p.gl) break;  // an empty k slice writes zeros
+      const int col = 8 * (dt0 + i) + 2 * t4;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        float* pr = ps + (16 * m + gq) * p.gok + col;
+        pr[0] = acc[i][m][0], pr[1] = acc[i][m][1];
+        pr[8 * p.gok] = acc[i][m][2], pr[8 * p.gok + 1] = acc[i][m][3];
+      }
+    }
+    zero();
+    __syncthreads();
+    for_cells(p.gl * R, p.gok, tid, [&](int gr, int col) {
+      const int g = gr / R, r = gr - g * R;
+      const float* pr = ts + (g * p.kss * R + r) * p.gok + col;
+      float sum = 0.f;
+      for (int j = 0; j < p.kss; ++j) sum += pr[j * R * p.gok];
+      put_h(g, r, col, sum);
+    });
+  }
+  __syncthreads();  // h complete; z and the partial sums no longer read
+
+  // ---- o_g = h_g . Wu[g] + bu_g over this warp's items, written over z -------------
+  with_tiles<NT>(p.uw / 8, [&](auto tn) {
+  for (int q = 0; q < nqu; ++q, next(cc)) {
+    cp_async_wait<D - 2>();
+    __syncwarp();
+    issue();
+    const Chunk& c = cc.c;
+    const int hoff = c.g * R * p.hst;
+    product(tn, c, wsu, [&](int ks, int m) {
+      const int o = hoff + 16 * m * p.hst + 8 * ks;
+      return a_frag(hb + o, hsm + o, p.hst, gq, t4);
+    });
+    if (c.last) {  // the item's last chunk
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        if (i >= c.nt) break;
+        const int col = 8 * (c.t0 + i) + 2 * t4, oc = c.g * gi + col;  // tile column
+        const float b0 = col < gi ? vbu[oc] : 0.f, b1 = col + 1 < gi ? vbu[oc + 1] : 0.f;
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          float* orow = ts + (16 * m + gq) * p.ost + oc;
+          if (col < gi) orow[0] = acc[i][m][0] + b0, orow[8 * p.ost] = acc[i][m][2] + b0;
+          if (col + 1 < gi) orow[1] = acc[i][m][1] + b1, orow[8 * p.ost + 1] = acc[i][m][3] + b1;
+        }
+      }
+      zero();
+    }
+  }
+  });
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- out = LN_post(o) -------------------------------------------------------------
+  float* dst = out + static_cast<size_t>(row0) * C + c0;
+  if (p.vx)
+    ln_rows<CL, M, 4>(ts, p, vln2s, vln2b, dst, C, row0, rows, part, warp, lane);
+  else
+    ln_rows<CL, M, 1>(ts, p, vln2s, vln2b, dst, C, row0, rows, part, warp, lane);
+  if constexpr (CL == 2) cooperative_groups::this_cluster().sync();  // the peer read `part`
+}
+
+template <int CL, int M>
+int launch_tf32(const void* x, const void* wd, const void* bd, const void* wu, const void* bu,
+                const void* ln1s, const void* ln1b, const void* ln2s, const void* ln2b,
+                void* out, int rows, const Tf32Plan& plan, cudaStream_t stream) {
+  const size_t smem = tf32_smem_bytes(plan, M);
+  auto kern = bottleneck_kernel_tf32<CL, M>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ceil_div(rows, 16 * M) * CL);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  auto f = [](const void* q) { return static_cast<const float*>(q); };
+  return cudaLaunchKernelEx(&cfg, kern, f(x), f(wd), f(bd), f(wu), f(bu), f(ln1s), f(ln1b),
+                            f(ln2s), f(ln2b), static_cast<float*>(out), rows, plan);
+}
+
+// The float32 entry: `cluster` CTAs a tile (1; 2, a cluster, each on half the
+// groups) and `m` 16-row m-tiles a CTA (1, 2, or 4 on one CTA a tile), or 0
+// for either to choose.
+// Ring slots as large as fit two CTAs an SM where there are enough CTAs, else
+// one.
+int launch_f32(const void* x, const void* wd, const void* bd, const void* wu, const void* bu,
+               const void* ln1s, const void* ln1b, const void* ln2s, const void* ln2b, void* out,
+               int rows, int C, int G, int go, bool has_ln1, int cluster, int m,
+               cudaStream_t stream) {
+  if (G < 1 || go < 1 || C < G || C % G || rows < 1 || cluster < 0 || cluster > 2 ||
+      (m != 0 && m != 1 && m != 2 && m != 4) || (m == 4 && cluster == 2))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  // chosen: a cluster where one CTA a tile leaves SMs idle, two m-tiles where
+  // there are rows enough to fill the card with them, four where the channels
+  // are few and the rows fill it twice over with those; then the first that
+  // fits, the other cluster (groups allowing) and fewer m-tiles, in that order
+  const bool pick_cluster = cluster == 0, pick_m = m == 0;
+  if (pick_cluster) cluster = G % 2 == 0 && ceil_div(rows, 16) < sms ? 2 : 1;
+  if (pick_m) {
+    m = 5 * ceil_div(rows, 32) * cluster >= 3 * sms ? 2 : 1;
+    if (cluster == 1 && C <= 192 && ceil_div(rows, 64) >= 2 * sms) m = 4;
+  }
+  if (G % cluster) return cudaErrorInvalidValue;
+  const size_t half = static_cast<size_t>(smem_max) / 2 - 1024;
+  Tf32Plan plan;
+  bool ok = false;
+  for (const int cl : {cluster, 3 - cluster}) {
+    if (ok || G % cl || (cl != cluster && !pick_cluster)) continue;
+    for (int mm = m; mm >= (pick_m ? 1 : m) && !ok; mm /= 2) {
+      if (mm == 4 && cl == 2) continue;
+      const bool two = ceil_div(rows, 16 * mm) * cl > sms;
+      for (const size_t budget : {two ? half : static_cast<size_t>(smem_max),
+                                  static_cast<size_t>(smem_max)}) {
+        for (const int slot : {1024, 768, 512, 384, 256, 128})
+          if ((ok = make_tf32_plan(C, G, go, cl, mm, slot, budget, plan))) break;
+        if (ok) break;
+      }
+      if (ok) cluster = cl, m = mm;
+    }
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  plan.has_ln1 = has_ln1;
+  plan.vx = plan.cl % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(bu) &&
+            aligned16(ln2s) && aligned16(ln2b) &&
+            (!has_ln1 || (aligned16(ln1s) && aligned16(ln1b)));
+  plan.vd = go % 4 == 0 && aligned16(wd);
+  plan.vu = plan.gi % 4 == 0 && aligned16(wu);
+  auto launch = cluster == 2 ? (m == 2 ? launch_tf32<2, 2> : launch_tf32<2, 1>)
+                             : (m == 4 ? launch_tf32<1, 4>
+                                       : m == 2 ? launch_tf32<1, 2> : launch_tf32<1, 1>);
+  return launch(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, out, rows, plan, stream);
+}
+
 }  // namespace
 }  // namespace dgsct
 
 // x, out: (rows, C); wd: (G, C/G, go); bd: (G*go); wu: (G, go, C/G); bu, ln*: (C).
-// ln1s / ln1b are read only when has_ln1. bfloat16 needs C/G a multiple of 8,
-// G * ceil(go / 8) <= 32 and 16-byte aligned x, out, wd, wu, bu and ln*
-// (cudaErrorInvalidValue, cudaErrorMisalignedAddress otherwise).
+// ln1s / ln1b are read only when has_ln1. float32 needs C a multiple of G and
+// the plan in shared memory (C + G * go up to about 3000); bfloat16 needs C/G
+// a multiple of 8, G * ceil(go / 8) <= 32 and 16-byte aligned x, out, wd, wu,
+// bu and ln* (cudaErrorInvalidValue, cudaErrorMisalignedAddress otherwise).
 extern "C" int k3_adapter_bottleneck(const void* x, const void* wd, const void* bd,
                                      const void* wu, const void* bu, const void* ln1s,
                                      const void* ln1b, const void* ln2s, const void* ln2b,
@@ -587,14 +1119,25 @@ extern "C" int k3_adapter_bottleneck(const void* x, const void* wd, const void* 
                                      int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == dgsct::kF32)
-    return has_ln1 ? dgsct::launch<float, true>(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b,
-                                                out, rows, C, G, go, s)
-                   : dgsct::launch<float, false>(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b,
-                                                 out, rows, C, G, go, s);
+    return dgsct::launch_f32(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, out, rows, C, G, go,
+                             has_ln1 != 0, 0, 0, s);
   if (dtype == dgsct::kBF16)
     return has_ln1 ? dgsct::launch_mma<true>(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, out,
                                              rows, C, G, go, s)
                    : dgsct::launch_mma<false>(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, out,
                                               rows, C, G, go, s);
   return cudaErrorInvalidValue;
+}
+
+// The float32 kernel with its geometry chosen: `cluster` CTAs a tile (1, or 2:
+// a cluster of two, each on half the groups) and `m` 16-row m-tiles a CTA (1,
+// 2, or 4 with one CTA a tile); 0 for either chooses as k3_adapter_bottleneck
+// does. For timing the geometries against each other.
+extern "C" int k3_adapter_bottleneck_f32(const void* x, const void* wd, const void* bd,
+                                         const void* wu, const void* bu, const void* ln1s,
+                                         const void* ln1b, const void* ln2s, const void* ln2b,
+                                         void* out, int rows, int C, int G, int go, int has_ln1,
+                                         int cluster, int m, void* stream) {
+  return dgsct::launch_f32(x, wd, bd, wu, bu, ln1s, ln1b, ln2s, ln2b, out, rows, C, G, go,
+                           has_ln1 != 0, cluster, m, static_cast<cudaStream_t>(stream));
 }
