@@ -22,6 +22,7 @@ import torch
 
 from .. import native
 from ..ops.basic import encode_mulaw_u8
+from ..utils.profiling import DEVICE, span
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -334,8 +335,9 @@ def device_prefetch(it, *, device, size: int = 2,
     def produce():
         try:
             for batch in it:
-                staged, ev = ring.stage({k: v for k, v in batch.items() if k in keys},
-                                        device, side)
+                with span("dgsct.serve.stage", DEVICE, stream=side):
+                    staged, ev = ring.stage({k: v for k, v in batch.items() if k in keys},
+                                            device, side)
                 if not _put(q, ({**batch, **staged}, ev), stop):
                     return
         except Exception as e:  # raised again in the consumer

@@ -13,6 +13,7 @@ from ..configs import AVEModelConfig
 from ..device import resolve_device
 from ..ops.basic import GELU_MODES, seeded_init
 from ..parallel.comm import gather_frames
+from ..utils.profiling import span
 from ..utils.tree import tree_map
 from . import htsat as H
 from . import interleave as I
@@ -91,25 +92,27 @@ def forward(params, state, wave, images, cfg: AVEModelConfig, *, train=False, ke
     if mixup_lambda is not None:
         mixup_lambda = torch.as_tensor(mixup_lambda, device=device)
     B, T = wave.shape[0], wave.shape[1]
-    feats, new_state = I.forward(params, state, wave.reshape(B * T, -1),
-                                 images.reshape((B * T,) + tuple(images.shape[2:])), cfg,
-                                 kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
-                                 train=train,
-                                 gen=gen if train else None, mixup_lambda=mixup_lambda,
-                                 remat_policy=remat_policy, group=group, tp=tp,
-                                 pipeline=pipeline)
-    f_v = feats["f_v"].reshape(B, T, -1)
-    f_a = feats["f_a"].reshape(B, T, -1)
-    if seq is not None:
-        f_v, f_a = gather_frames(f_v, seq), gather_frames(f_a, seq)
-    head_gen = gen if train else None
-    video_q, audio_q, av_gate = heads.temporal_attention(params["temporal_attn"], f_v, f_a,
-                                                         train=train, gen=head_gen)
-    is_event_scores, event_scores, av_score = heads.cmbs(params["CMBS"], video_q, audio_q)
-    out = {"is_event_scores": is_event_scores[..., 0].transpose(0, 1),
-           "event_scores": event_scores,
-           "av_gate": av_gate[..., 0].transpose(0, 1),
-           "av_score": av_score}
-    if pipeline is not None:
-        out["pipelined_stages"] = feats["pipelined_stages"]
+    with span("dgsct.model.towers"):
+        feats, new_state = I.forward(params, state, wave.reshape(B * T, -1),
+                                     images.reshape((B * T,) + tuple(images.shape[2:])), cfg,
+                                     kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
+                                     train=train,
+                                     gen=gen if train else None, mixup_lambda=mixup_lambda,
+                                     remat_policy=remat_policy, group=group, tp=tp,
+                                     pipeline=pipeline)
+    with span("dgsct.model.heads"):
+        f_v = feats["f_v"].reshape(B, T, -1)
+        f_a = feats["f_a"].reshape(B, T, -1)
+        if seq is not None:
+            f_v, f_a = gather_frames(f_v, seq), gather_frames(f_a, seq)
+        head_gen = gen if train else None
+        video_q, audio_q, av_gate = heads.temporal_attention(params["temporal_attn"], f_v, f_a,
+                                                             train=train, gen=head_gen)
+        is_event_scores, event_scores, av_score = heads.cmbs(params["CMBS"], video_q, audio_q)
+        out = {"is_event_scores": is_event_scores[..., 0].transpose(0, 1),
+               "event_scores": event_scores,
+               "av_gate": av_gate[..., 0].transpose(0, 1),
+               "av_score": av_score}
+        if pipeline is not None:
+            out["pipelined_stages"] = feats["pipelined_stages"]
     return (out, new_state) if train else out

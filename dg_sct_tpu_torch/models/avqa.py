@@ -27,6 +27,7 @@ from ..ops.basic import (GELU_MODES, Init, dropout, layer_norm, layer_norm_init,
                         linear_init, seeded_init)
 from ..ops.mha import mha, mha_init
 from ..ops.rnn import lstm_cell_init, lstm_with_state
+from ..utils.profiling import span
 from . import htsat as H
 from . import interleave as I
 from . import swinv2 as S
@@ -192,14 +193,16 @@ def forward(params, state, wave, visual_posi, visual_nega, question, cfg: AVQAMo
         mixup_lambda = torch.as_tensor(mixup_lambda, device=device)
     gen = gen if train else None
     B, T = wave.shape[0], wave.shape[1]
-    feats, new_state = I.forward(params, state, wave.reshape(B * T, -1), frames(visual_posi),
-                                 cfg, kernels=kernels and not train, int8_attn=int8_attn,
-                                 gelu=gelu, train=train, gen=gen, mixup_lambda=mixup_lambda,
-                                 remat_policy=remat_policy, group=group)
-    nega = None
-    if visual_nega is not None:
-        nega = nega_tokens(params, frames(visual_nega), cfg, kernels=kernels,
-                           int8_attn=int8_attn, gelu=gelu)
-    out = heads(params, feats["f_a"].reshape(B, T, -1), feats["vis_tokens"], nega, question, cfg,
-                train=train, gen=gen)
+    with span("dgsct.model.towers"):
+        feats, new_state = I.forward(params, state, wave.reshape(B * T, -1), frames(visual_posi),
+                                     cfg, kernels=kernels and not train, int8_attn=int8_attn,
+                                     gelu=gelu, train=train, gen=gen, mixup_lambda=mixup_lambda,
+                                     remat_policy=remat_policy, group=group)
+        nega = None
+        if visual_nega is not None:
+            nega = nega_tokens(params, frames(visual_nega), cfg, kernels=kernels,
+                               int8_attn=int8_attn, gelu=gelu)
+    with span("dgsct.model.heads"):
+        out = heads(params, feats["f_a"].reshape(B, T, -1), feats["vis_tokens"], nega, question,
+                    cfg, train=train, gen=gen)
     return (out, new_state) if train else out

@@ -18,6 +18,7 @@ from ..configs import AVSModelConfig
 from ..device import resolve_device
 from ..ops import dsp
 from ..ops.basic import GELU_MODES, Init, conv2d, conv2d_init, linear, linear_init, seeded_init
+from ..utils.profiling import span
 from . import htsat as H
 from . import interleave as I
 from . import swinv2 as S
@@ -109,54 +110,56 @@ def forward(params, state, images, wave, cfg: AVSModelConfig, *, train=False, ke
         mixup_lambda = torch.as_tensor(mixup_lambda, device=device)
     gen = gen if train else None
     B, T = images.shape[0], images.shape[1]
-    imgs = dsp.resize_2d(images.reshape((B * T,) + tuple(images.shape[2:])),
-                         cfg.swin.img_size, cfg.swin.img_size, kernel="cubic",
-                         align_corners=False)
-    feats, new_state = I.forward(params, state, wave.reshape(B * T, -1), imgs, cfg,
-                                 kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
-                                 train=train, gen=gen, mixup_lambda=mixup_lambda,
-                                 remat_policy=remat_policy, return_stage_taps=True,
-                                 group=group)
+    with span("dgsct.model.towers"):
+        imgs = dsp.resize_2d(images.reshape((B * T,) + tuple(images.shape[2:])),
+                             cfg.swin.img_size, cfg.swin.img_size, kernel="cubic",
+                             align_corners=False)
+        feats, new_state = I.forward(params, state, wave.reshape(B * T, -1), imgs, cfg,
+                                     kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
+                                     train=train, gen=gen, mixup_lambda=mixup_lambda,
+                                     remat_policy=remat_policy, return_stage_taps=True,
+                                     group=group)
 
-    audio_feature = linear(params["audio_linear"], feats["f_a"][:, 0, :].reshape(B, T, -1))
-    maps = []
-    for i, tap in enumerate(feats["stage_taps"]):
-        r = cfg.swin.stage_resolution(i)[0]
-        x = linear(params["scale_linears"][i], tap.reshape(tap.shape[0], r, r, -1))
-        sz = cfg.scale_sizes[i]
-        maps.append(dsp.resize_2d(x, sz, sz, kernel="cubic", align_corners=False))
-    maps, audio_flat = avs_head.avs_temporal_attention(params["temporal_attn"], maps,
-                                                       audio_feature, num_frames=T,
-                                                       train=train, gen=gen)
+    with span("dgsct.model.heads"):
+        audio_feature = linear(params["audio_linear"], feats["f_a"][:, 0, :].reshape(B, T, -1))
+        maps = []
+        for i, tap in enumerate(feats["stage_taps"]):
+            r = cfg.swin.stage_resolution(i)[0]
+            x = linear(params["scale_linears"][i], tap.reshape(tap.shape[0], r, r, -1))
+            sz = cfg.scale_sizes[i]
+            maps.append(dsp.resize_2d(x, sz, sz, kernel="cubic", align_corners=False))
+        maps, audio_flat = avs_head.avs_temporal_attention(params["temporal_attn"], maps,
+                                                           audio_feature, num_frames=T,
+                                                           train=train, gen=gen)
 
-    a_fea_list = [None] * 4
-    new_state["tpavi"] = dict(state["tpavi"])
-    for i in cfg.tpavi_stages:
-        name = f"tpavi_b{i + 1}"
-        x5 = maps[i].reshape((B, T) + tuple(maps[i].shape[1:]))
-        acc, count = torch.zeros_like(maps[i]), 0
-        # with both flags, each call starts from the old BN state and the
-        # audio one's update is kept, as in the JAX package
-        if cfg.tpavi_vv_flag:
-            z, _, new_state["tpavi"][name] = TP.tpavi(params["tpavi"][name],
-                                                      state["tpavi"][name], x5, None,
-                                                      train=train, group=group)
-            acc, count = acc + z.reshape(maps[i].shape), count + 1
-        if cfg.tpavi_va_flag:
-            z, a_fea_list[i], new_state["tpavi"][name] = TP.tpavi(
-                params["tpavi"][name], state["tpavi"][name], x5, audio_flat.reshape(B, T, -1),
-                train=train, group=group)
-            acc, count = acc + z.reshape(maps[i].shape), count + 1
-        maps[i] = acc / count
+        a_fea_list = [None] * 4
+        new_state["tpavi"] = dict(state["tpavi"])
+        for i in cfg.tpavi_stages:
+            name = f"tpavi_b{i + 1}"
+            x5 = maps[i].reshape((B, T) + tuple(maps[i].shape[1:]))
+            acc, count = torch.zeros_like(maps[i]), 0
+            # with both flags, each call starts from the old BN state and the
+            # audio one's update is kept, as in the JAX package
+            if cfg.tpavi_vv_flag:
+                z, _, new_state["tpavi"][name] = TP.tpavi(params["tpavi"][name],
+                                                          state["tpavi"][name], x5, None,
+                                                          train=train, group=group)
+                acc, count = acc + z.reshape(maps[i].shape), count + 1
+            if cfg.tpavi_va_flag:
+                z, a_fea_list[i], new_state["tpavi"][name] = TP.tpavi(
+                    params["tpavi"][name], state["tpavi"][name], x5, audio_flat.reshape(B, T, -1),
+                    train=train, group=group)
+                acc, count = acc + z.reshape(maps[i].shape), count + 1
+            maps[i] = acc / count
 
-    paths = params["paths"]  # path4 (7 -> 14) first, path1 (56 -> 112) last
-    y = feature_fusion_block(paths[3], maps[3])
-    y = feature_fusion_block(paths[2], y, maps[2])
-    y = feature_fusion_block(paths[1], y, maps[1])
-    y = feature_fusion_block(paths[0], y, maps[0])
-    y = conv2d(params["out_conv1"], y)
-    y = dsp.resize_2d(y, cfg.mask_size, cfg.mask_size, kernel="linear", align_corners=False)
-    y = torch.relu(conv2d(params["out_conv2"], y))
-    pred = conv2d(params["out_conv3"], y)
+        paths = params["paths"]  # path4 (7 -> 14) first, path1 (56 -> 112) last
+        y = feature_fusion_block(paths[3], maps[3])
+        y = feature_fusion_block(paths[2], y, maps[2])
+        y = feature_fusion_block(paths[1], y, maps[1])
+        y = feature_fusion_block(paths[0], y, maps[0])
+        y = conv2d(params["out_conv1"], y)
+        y = dsp.resize_2d(y, cfg.mask_size, cfg.mask_size, kernel="linear", align_corners=False)
+        y = torch.relu(conv2d(params["out_conv2"], y))
+        pred = conv2d(params["out_conv3"], y)
     out = {"pred": pred, "feature_map_list": maps, "a_fea_list": a_fea_list}
     return (out, new_state) if train else out

@@ -18,6 +18,7 @@ from ..configs import AVVPModelConfig
 from ..device import resolve_device
 from ..ops.basic import GELU_MODES, Init, linear, linear_init, seeded_init
 from ..ops.rnn import bilstm, bilstm_init
+from ..utils.profiling import span
 from . import grouping as G
 from . import htsat as H
 from . import interleave as I
@@ -165,11 +166,13 @@ def forward(params, state, wave, images, video_st, cfg: AVVPModelConfig, *, trai
         mixup_lambda = torch.as_tensor(mixup_lambda, device=device)
     gen = gen if train else None
     B, T = wave.shape[0], wave.shape[1]
-    feats, new_state = I.forward(params, state, wave.reshape(B * T, -1),
-                                 images.reshape((B * T,) + tuple(images.shape[2:])), cfg,
-                                 kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
-                                 train=train, gen=gen, mixup_lambda=mixup_lambda,
-                                 remat_policy=remat_policy)
-    out = heads(params, feats["f_v"].reshape(B, T, -1), feats["f_a"].reshape(B, T, -1), video_st,
-                cfg, train=train, gen=gen, gelu=gelu)
+    with span("dgsct.model.towers"):
+        feats, new_state = I.forward(params, state, wave.reshape(B * T, -1),
+                                     images.reshape((B * T,) + tuple(images.shape[2:])), cfg,
+                                     kernels=kernels and not train, int8_attn=int8_attn, gelu=gelu,
+                                     train=train, gen=gen, mixup_lambda=mixup_lambda,
+                                     remat_policy=remat_policy)
+    with span("dgsct.model.heads"):
+        out = heads(params, feats["f_v"].reshape(B, T, -1), feats["f_a"].reshape(B, T, -1),
+                    video_st, cfg, train=train, gen=gen, gelu=gelu)
     return (out, new_state) if train else out

@@ -32,6 +32,7 @@ from ..configs import AVEModelConfig, ave_adapter_dims, ave_paired_layout, vis_a
 from ..ops.basic import Init, drop_path_mask, drop_residual, layer_norm, mlp
 from ..parallel.pipeline import gpipe
 from ..parallel.tp import for_split
+from ..utils.profiling import span
 from . import adapter as A
 from . import htsat as H
 from . import swinv2 as S
@@ -109,17 +110,21 @@ def _paired_step(blk_params, blk_state, f_v, f_a, v_drop, a_drop, vmeta, ameta, 
     acfg, vcfg = cfg.adapter, vis_adapter_cfg(cfg)
     kw = dict(kernels=kernels, train=train, group=group, tp=tp)
     new_st = {}
-    a_res, _, new_st["a_p1"] = A.adapter(ad["a_p1"], blk_state["a_p1"], f_a, f_v, acfg, **kw)
-    v_res, _, new_st["v_p1"] = A.adapter(ad["v_p1"], blk_state["v_p1"], f_v, f_a, vcfg, **kw)
+    with span("dgsct.model.adapter"):
+        a_res, _, new_st["a_p1"] = A.adapter(ad["a_p1"], blk_state["a_p1"], f_a, f_v, acfg, **kw)
+    with span("dgsct.model.adapter"):
+        v_res, _, new_st["v_p1"] = A.adapter(ad["v_p1"], blk_state["v_p1"], f_v, f_a, vcfg, **kw)
     f_v = S.attn_half(vp, f_v, vmeta, kernels=kernels, int8_attn=int8_attn, drop=v_drop,
                       tp=tp) + v_res
     f_a = H.block(ap, f_a, dim=ameta["dim"], heads=ameta["heads"], res=ameta["res"],
                   ws=ameta["ws"], shift=ameta["shift"], kernels=kernels, gelu=gelu,
                   drop=a_drop, tp=tp, hidden=ameta["hidden"]) + a_res
-    a_res, a_maps, new_st["a_p2"] = A.adapter(ad["a_p2"], blk_state["a_p2"], f_a, f_v, acfg,
-                                              **kw)
-    v_res, v_maps, new_st["v_p2"] = A.adapter(ad["v_p2"], blk_state["v_p2"], f_v, f_a, vcfg,
-                                              **kw)
+    with span("dgsct.model.adapter"):
+        a_res, a_maps, new_st["a_p2"] = A.adapter(ad["a_p2"], blk_state["a_p2"], f_a, f_v,
+                                                  acfg, **kw)
+    with span("dgsct.model.adapter"):
+        v_res, v_maps, new_st["v_p2"] = A.adapter(ad["v_p2"], blk_state["v_p2"], f_v, f_a,
+                                                  vcfg, **kw)
     y = mlp(vp["mlp"], f_v, gelu, kernels=kernels, tp=for_split(tp, vmeta["hidden"]))
     f_v = f_v + drop_residual(layer_norm(vp["norm2"], y), v_drop, 1) + v_res
     return f_v, f_a + a_res, a_maps, v_maps, new_st

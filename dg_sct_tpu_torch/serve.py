@@ -54,6 +54,7 @@ from .models.interleave import fold_adapters_eval
 from .ops import quant
 from .ops.basic import (GELU_MODES, dequantize_mulaw_u8, normalize_frames_u8,
                         normalize_frames_yuv420)
+from .utils.profiling import DEVICE, HOST, span
 from .utils.tree import tree_map
 
 OUTPUTS = ("event_scores", "is_event_scores")
@@ -156,18 +157,21 @@ class _StreamingEngine:
         tensors, event or None); the values are read only after the event."""
         if self.device.type != "cuda":
             return out, None
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in out.items()}
-        for k, v in out.items():
-            host[k].copy_(v, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
+        with span("dgsct.serve.to_host", DEVICE):
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in out.items()}
+            for k, v in out.items():
+                host[k].copy_(v, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
         return host, ev
 
     @staticmethod
     def _finish(pending):
         (host, ev), ids = pending
         if ev is not None:
-            ev.synchronize()
+            with span("dgsct.serve.wait", HOST):
+                ev.synchronize()
         return {k: v.numpy() for k, v in host.items()}, ids
 
     def stream(self, dataset) -> Iterator[Tuple[dict, list]]:
@@ -221,12 +225,15 @@ class AVEInferenceEngine(_StreamingEngine):
     def forward_batch(self, wave, frames, frames_uv=None):
         """One batch of exactly `batch_size` clips -> the model's outputs
         (float32, on the card). With `frames_uv`, `frames` is the Y plane."""
-        uv = None if frames_uv is None else self._to_dev(frames_uv)
-        out = ave.forward(self.params, self.state, self._wave(self._to_dev(wave)),
-                          self._frames(self._to_dev(frames), uv), self.cfg,
-                          kernels=self.kernels, int8_attn=self.int8_attn, gelu=self.gelu,
-                          device=self.device)
-        return {k: v.float() for k, v in out.items()}
+        with span("dgsct.serve.forward", DEVICE):
+            with span("dgsct.serve.wire"):
+                uv = None if frames_uv is None else self._to_dev(frames_uv)
+                wave = self._wave(self._to_dev(wave))
+                frames = self._frames(self._to_dev(frames), uv)
+            out = ave.forward(self.params, self.state, wave, frames, self.cfg,
+                              kernels=self.kernels, int8_attn=self.int8_attn, gelu=self.gelu,
+                              device=self.device)
+            return {k: v.float() for k, v in out.items()}
 
     def predict(self, wave, frames):
         """Answer one request of n clips, batch by batch; the ragged last
@@ -241,8 +248,9 @@ class AVEInferenceEngine(_StreamingEngine):
                 w = np.concatenate([w] + [w[-1:]] * (self.B - k))
                 f = np.concatenate([f] + [f[-1:]] * (self.B - k))
             out = self.forward_batch(w, f)
-            ev.append(out["event_scores"][:k].cpu().numpy())
-            ie.append(out["is_event_scores"][:k].cpu().numpy())
+            with span("dgsct.serve.wait", HOST):
+                ev.append(out["event_scores"][:k].cpu().numpy())
+                ie.append(out["is_event_scores"][:k].cpu().numpy())
         ev, ie = np.concatenate(ev), np.concatenate(ie)
         return {"event_scores": ev, "is_event_scores": ie, "segment_preds": segment_preds(ev, ie)}
 
@@ -302,13 +310,16 @@ class AVSInferenceEngine(_StreamingEngine):
     def forward_batch(self, wave, frames):
         """One batch of exactly `batch_size` clips -> (B*T, H, W) on the card:
         uint8 probabilities x 255 with `mask_u8`, else float32 logits."""
-        out = avs.forward(self.params, self.state, self._frames(self._to_dev(frames)),
-                          self._wave(self._to_dev(wave)), self.cfg, kernels=self.kernels,
-                          gelu=self.gelu, device=self.device)
-        pred = out["pred"][..., 0].float()
-        if self.mask_u8:
-            return torch.round(torch.sigmoid(pred) * 255.0).to(torch.uint8)
-        return pred
+        with span("dgsct.serve.forward", DEVICE):
+            with span("dgsct.serve.wire"):
+                frames = self._frames(self._to_dev(frames))
+                wave = self._wave(self._to_dev(wave))
+            out = avs.forward(self.params, self.state, frames, wave, self.cfg,
+                              kernels=self.kernels, gelu=self.gelu, device=self.device)
+            pred = out["pred"][..., 0].float()
+            if self.mask_u8:
+                return torch.round(torch.sigmoid(pred) * 255.0).to(torch.uint8)
+            return pred
 
     @staticmethod
     def _meta(batch, first, n):
@@ -355,10 +366,14 @@ class AVVPInferenceEngine(_StreamingEngine):
     def forward_batch(self, wave, frames, video_st):
         """One batch of exactly `batch_size` clips -> {AVVP_OUTPUTS name:
         float32 on the card}."""
-        out = avvp.forward(self.params, self.state, self._wave(self._to_dev(wave)),
-                           self._frames(self._to_dev(frames)), self._to_dev(video_st), self.cfg,
-                           kernels=self.kernels, gelu=self.gelu, device=self.device)
-        return {k: out[k].float() for k in AVVP_OUTPUTS}
+        with span("dgsct.serve.forward", DEVICE):
+            with span("dgsct.serve.wire"):
+                wave = self._wave(self._to_dev(wave))
+                frames = self._frames(self._to_dev(frames))
+                video_st = self._to_dev(video_st)
+            out = avvp.forward(self.params, self.state, wave, frames, video_st, self.cfg,
+                               kernels=self.kernels, gelu=self.gelu, device=self.device)
+            return {k: out[k].float() for k in AVVP_OUTPUTS}
 
     @staticmethod
     def _meta(batch, first, n):
@@ -403,10 +418,14 @@ class AVQAInferenceEngine(_StreamingEngine):
     def forward_batch(self, wave, frames, question):
         """One batch of exactly `batch_size` questions -> the answer logits
         (B, ans_vocab), float32 on the card."""
-        out = avqa.forward(self.params, self.state, self._wave(self._to_dev(wave)),
-                           self._frames(self._to_dev(frames)), None, self._to_dev(question),
-                           self.cfg, kernels=self.kernels, gelu=self.gelu, device=self.device)
-        return out["out_qa"].float()
+        with span("dgsct.serve.forward", DEVICE):
+            with span("dgsct.serve.wire"):
+                wave = self._wave(self._to_dev(wave))
+                frames = self._frames(self._to_dev(frames))
+                question = self._to_dev(question)
+            out = avqa.forward(self.params, self.state, wave, frames, None, question, self.cfg,
+                               kernels=self.kernels, gelu=self.gelu, device=self.device)
+            return out["out_qa"].float()
 
     @staticmethod
     def _meta(batch, first, n):

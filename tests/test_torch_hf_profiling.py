@@ -1,13 +1,12 @@
 """HF `transformers` import (dg_sct_tpu_torch.utils.hf_convert and the two
 key renames of utils.torch_convert) against the JAX package's on tiny
 random `transformers` models (skipped without `transformers`), the port's
-Swin-V2, CLIP and PVT-v2 towers against HF's own outputs, and the
-profiling utilities. Tolerances: converted trees and renamed state dicts
+Swin-V2, CLIP and PVT-v2 towers against HF's own outputs, and
+`flops_estimate` and `trace`. Tolerances: converted trees and renamed state dicts
 exactly; Swin-V2 tokens atol 3e-3, rtol 1e-2, CLIP features atol 1e-4,
 rtol 1e-3 and PVT maps atol 2e-4, rtol 2e-3 (those of
-tests/test_third_party_parity.py); the FLOP count exactly."""
-import time
-
+tests/test_third_party_parity.py); the FLOP count exactly. The spans:
+tests/test_torch_tracing.py."""
 import numpy as np
 import jax
 import pytest
@@ -219,28 +218,6 @@ def test_flops_estimate_of_a_tree_and_a_convolution():
     est = PR.flops_estimate(lambda p, x: conv2d(p, x, stride=2), params,
                             torch.randn(2, 10, 10, 4))
     assert est["flops"] == 2 * (2 * 5 * 5 * 8) * (3 * 3 * 4)
-
-
-def test_average_meter():
-    m = PR.AverageMeter()
-    assert m.avg == 0.0
-    m.update(2.0, n=3)
-    m.update(torch.tensor(4.0))
-    assert m.val == 4.0 and m.count == 4 and m.sum == 10.0 and m.avg == 2.5
-    m.reset()
-    assert (m.val, m.sum, m.count, m.avg) == (0.0, 0.0, 0, 0.0)
-
-
-def test_step_timer():
-    timer = PR.StepTimer(warmup=1, ema=0.5)
-    assert timer.throughput(8) == 0.0
-    for dt in (0.05, 0.01, 0.03):
-        with timer:
-            time.sleep(dt)
-    assert timer.steps == 3
-    # the warmup step is left out: ema = 0.5 * 0.01 + 0.5 * 0.03 (+ overheads)
-    assert 0.019 <= timer.ema_s < 0.035
-    assert timer.throughput(8) == pytest.approx(8 / timer.ema_s)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
